@@ -1,0 +1,65 @@
+"""Built-in stage sets (the simulator's "model zoo").
+
+Mirrors the reference's embedded default stages
+(reference: pkg/kwok/cmd/root.go:32-35,463-490 + kustomize/stage/*):
+pod fast/general/chaos FSMs, node fast/heartbeat/chaos.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List
+
+from kwok_tpu_torch.api.loader import load_stages
+from kwok_tpu_torch.api.types import Stage
+
+_DIR = os.path.dirname(__file__)
+
+POD_FAST = "pod-fast"
+POD_GENERAL = "pod-general"
+POD_CHAOS = "pod-chaos"
+NODE_FAST = "node-fast"
+NODE_HEARTBEAT = "node-heartbeat"
+NODE_CHAOS = "node-chaos"
+
+ALL_SETS = [POD_FAST, POD_GENERAL, POD_CHAOS, NODE_FAST, NODE_HEARTBEAT, NODE_CHAOS]
+
+
+#: non-Stage builtin asset: Metric + ClusterResourceUsage emulating the
+#: kubelet /metrics/resource endpoint (the reference's metrics-usage
+#: chart, charts/metrics-usage/templates/)
+METRICS_USAGE = "metrics-usage"
+
+
+def builtin_asset_path(name: str) -> str:
+    path = os.path.join(_DIR, f"{name}.yaml")
+    if not os.path.exists(path):
+        raise ValueError(f"unknown builtin asset {name!r}; have {ALL_SETS + [METRICS_USAGE]}")
+    return path
+
+
+def load_builtin(name: str) -> List[Stage]:
+    return load_stages(builtin_asset_path(name))
+
+
+def load_builtin_docs(name: str) -> List[dict]:
+    """Raw YAML documents of a builtin asset (for non-Stage kinds like
+    the metrics-usage Metric/ClusterResourceUsage pair)."""
+    from kwok_tpu_torch.api.loader import load_documents
+
+    return load_documents(builtin_asset_path(name))
+
+
+def default_node_stages(lease: bool = False) -> List[Stage]:
+    """Default node stages (reference root.go:463-482): initialize +
+    heartbeat (long-cadence variant when node leases are on)."""
+    stages = load_builtin(NODE_FAST)
+    hb = load_builtin(NODE_HEARTBEAT)
+    want = "node-heartbeat-with-lease" if lease else "node-heartbeat"
+    stages.extend(s for s in hb if s.name == want)
+    return stages
+
+
+def default_pod_stages() -> List[Stage]:
+    """Default pod stages (reference root.go:484-490): the fast set."""
+    return load_builtin(POD_FAST)
