@@ -50,9 +50,9 @@ CHURN = 10_000
 SAMPLE = 1_000
 PARITY_NS = (4_096, 1_000_003)
 
-# Least-time model (on-chip-measurement guide): H100 SXM, 3.35 TB/s HBM.
+# Least-time model: H100 SXM, 3.35 TB/s HBM.
 # The integer pipe has 64 INT32 lanes per SM (Hopper white paper), half
-# the float32 width behind the guide's 67 TFLOP/s, with no FMA doubling:
+# the float32 width behind the card's 67 TFLOP/s, with no FMA doubling:
 # 132 SMs x 64 lanes x 1.98 GHz.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
