@@ -13,11 +13,13 @@ Phases, in order; any failure raises and exits non-zero:
    N = 4,096 and N = 1,000,003;
 3. the main path through ``DeviceSimulator`` at full width: 1,000,000
    pods of pod-general + pod-chaos and 10,000 nodes of the default lease
-   node stages (as the reference ``bench.py`` builds them), macro-ticks
-   of K=8 for at least 10 s with admits, deletes and releases between
-   them, a 1,000,000-pod simulator whose stage set has more than 126
-   stages (the per-tick int32 branch), a bench-style ``run_ticks``
-   window, materialization and feature parity of 1,000 sampled rows;
+   node stages (as the reference ``bench.py`` builds them): macro-ticks
+   of K=8 with admits, deletes and releases between them, every
+   transition of 1,000 sampled rows materialized in order and their
+   feature parity checked, a 1,000,000-pod simulator on a synthetic
+   128-stage set (only to cover the per-tick int32 branch for more than
+   126 stages), then macro-ticks timed for 10 s and a bench-style
+   ``run_ticks`` window;
    every kernel's launch count must be positive;
 4. each kernel timed at the main path's shapes beside its plain version
    and its bound, printed as one ``{"kernels": [...]}`` line.
@@ -48,6 +50,8 @@ BENCH_TICKS = 600
 TIMED_S = 10.0
 CHURN = 10_000
 SAMPLE = 1_000
+WIDE_STAGES = 128
+WIDE_TAGGED = 1_000
 PARITY_NS = (4_096, 1_000_003)
 
 # Least-time model: H100 SXM, 3.35 TB/s HBM.
@@ -294,25 +298,32 @@ def scatter_batch(soa, cset, k: int, seed: int, device):
 # ------------------------------------------------------------------ phase 3
 
 
+def wide_label(v: int) -> str:
+    return f"custom.stage.kwok.x-k8s.io/group-{v // 30}"
+
+
 def wide_stages():
-    """pod-general + pod-chaos plus 150 label-selected custom stages: a
-    stage set past int8's 126 stages, which takes the per-tick branch."""
+    """pod-general + pod-chaos plus label-selected custom stages up to
+    128 stages: the fewest that take the per-tick int32 branch of
+    ``tick_many`` (more than 126) and hold a stage index above 126.  A
+    synthetic set for branch coverage, not a user workload.  A label
+    column holds at most 30 selector values, so the custom stages spread
+    over one label key per 30."""
     from kwok_tpu_torch.api.types import Stage
     from kwok_tpu_torch.stages import load_builtin
 
     stages = load_builtin("pod-general") + load_builtin("pod-chaos")
-    for g in range(5):
-        for v in range(30):
-            stages.append(Stage.from_dict({
-                "metadata": {"name": f"custom-{g}-{v}"},
-                "spec": {
-                    "resourceRef": {"kind": "Pod"},
-                    "selector": {"matchLabels": {f"custom.stage.kwok.x-k8s.io/group-{g}": f"v{v}"}},
-                    "weight": 1,
-                    "delay": {"durationMilliseconds": 1000, "jitterDurationMilliseconds": 2000},
-                    "next": {"statusTemplate": f"reason: custom-{g}-{v}"},
-                },
-            }))
+    for v in range(WIDE_STAGES - len(stages)):
+        stages.append(Stage.from_dict({
+            "metadata": {"name": f"custom-{v}"},
+            "spec": {
+                "resourceRef": {"kind": "Pod"},
+                "selector": {"matchLabels": {wide_label(v): f"custom-{v}"}},
+                "weight": 1,
+                "delay": {"durationMilliseconds": 1000},
+                "next": {"statusTemplate": f"reason: custom-{v}"},
+            },
+        }))
     return stages
 
 
@@ -345,10 +356,11 @@ def phase_main_path():
     node_sim = DeviceSimulator(default_node_stages(lease=True), capacity=N_NODES, seed=1)
     node_sim.admit_bulk(new_node(), N_NODES)
     wide_sim = DeviceSimulator(wide_stages(), capacity=N_PODS, seed=2)
-    wide_sim.admit_bulk(new_pod(), N_PODS - CHURN)
+    wide_sim.admit_bulk(new_pod(), N_PODS - WIDE_TAGGED)
+    last = wide_sim.cset.compiled[-1].name  # custom-118, stage index 127
     tagged = new_pod(1)
-    tagged["metadata"]["labels"]["custom.stage.kwok.x-k8s.io/group-4"] = "v29"
-    wide_sim.admit_bulk(tagged, CHURN)
+    tagged["metadata"]["labels"][wide_label(int(last.split("-")[1]))] = last
+    wide_sim.admit_bulk(tagged, WIDE_TAGGED)
     for sim in (pod_sim, node_sim, wide_sim):
         sim.to_device()
     torch.cuda.synchronize()
@@ -372,40 +384,6 @@ def phase_main_path():
         st, t0 = macro(pod_sim)
         drain(pod_sim, st, t0, sample)
         macro(node_sim)
-    # timed macro-ticks, each fetched to the host; the sampled rows'
-    # columns are kept and materialized after the window
-    fired = rows_fired = iters = 0
-    per_iter = []
-    split = np.zeros(3)  # dispatch, fetch (waits for the kernels), host count
-    kept = []
-    t_start = time.perf_counter()
-    while time.perf_counter() - t_start < TIMED_S:
-        t_i = time.perf_counter()
-        pod_dev, t0 = pod_sim.tick_many_async(DT_MS, MACRO_K)
-        node_dev, _ = node_sim.tick_many_async(DT_MS, MACRO_K)
-        t_d = time.perf_counter()
-        st, nst = pod_dev.cpu().numpy(), node_dev.cpu().numpy()
-        t_f = time.perf_counter()
-        hit = st >= 0
-        fired += int(np.count_nonzero(hit)) + int(np.count_nonzero(nst >= 0))
-        rows_fired += int(np.count_nonzero(hit.any(axis=0)))
-        kept.append((st[:, sample], t0))
-        t_e = time.perf_counter()
-        split += (t_d - t_i, t_f - t_d, t_e - t_f)
-        per_iter.append(t_e - t_i)
-        iters += 1
-    wall = time.perf_counter() - t_start
-    for sub, t0 in kept:
-        drain(pod_sim, sub, t0, np.arange(SAMPLE), rows=sample)
-    if fired == 0:
-        raise AssertionError("no transition fired in the timed window")
-    macro_ms = sorted(per_iter)[len(per_iter) // 2] * 1e3
-    log(f"macro-ticks: {iters} x K={MACRO_K} over {wall:.2f} s: {fired / wall:.0f} transitions/s "
-        f"(pods+nodes), median {macro_ms:.3f} ms per pod+node macro-tick incl. fetch, "
-        f"{rows_fired / (iters * N_PODS):.4f} of pod rows fired per macro-tick; "
-        f"wall split dispatch/fetch/host-count "
-        f"{'/'.join(f'{x / split.sum():.3f}' for x in split)}")
-
     # host churn between macro-ticks: release, delete, admit into freed rows
     t_churn = time.perf_counter()
     for row in released.tolist():
@@ -448,6 +426,43 @@ def phase_main_path():
         raise AssertionError(f"no pod reached Running or Failed: {phases}")
     log(f"feature parity of {SAMPLE} sampled rows: ok; pod phases {phases}; "
         f"node phases {node_sim.phase_counts()}")
+
+    # timed macro-ticks, each fetched to the host as the player fetches
+    # it.  The counts are made on the card and read after the window, so
+    # the window holds the simulator's work and little else.  The sampled
+    # rows' transitions of this window are not materialized: their
+    # parity was checked above, and at this rate 10 s of wall time are
+    # an hour and a half of virtual time, whose drain on the host would
+    # take far longer than the window
+    torch.cuda.synchronize()
+    fired_dev = torch.zeros((), dtype=torch.int64, device=pod_sim.device)
+    rows_dev = torch.zeros((), dtype=torch.int64, device=pod_sim.device)
+    iters = 0
+    dispatch = fetch = 0.0
+    t_start = time.perf_counter()
+    while time.perf_counter() - t_start < TIMED_S:
+        t_i = time.perf_counter()
+        pod_dev, _ = pod_sim.tick_many_async(DT_MS, MACRO_K)
+        node_dev, _ = node_sim.tick_many_async(DT_MS, MACRO_K)
+        hit = pod_dev >= 0
+        fired_dev += hit.sum() + (node_dev >= 0).sum()
+        rows_dev += hit.any(dim=0).sum()
+        t_d = time.perf_counter()
+        pod_dev.cpu(), node_dev.cpu()
+        t_f = time.perf_counter()
+        dispatch += t_d - t_i
+        fetch += t_f - t_d
+        iters += 1
+    window = time.perf_counter() - t_start
+    fired, rows_fired = int(fired_dev), int(rows_dev)
+    if fired == 0:
+        raise AssertionError("no transition fired in the timed window")
+    log(f"macro-ticks: {iters} x K={MACRO_K} in a {window:.3f} s window: "
+        f"{fired / window:.0f} transitions/s (pods+nodes), "
+        f"{window / iters * 1e3:.4f} ms per pod+node macro-tick incl. fetch "
+        f"(dispatch and on-card counts {dispatch / iters * 1e3:.4f}, "
+        f"fetch {fetch / iters * 1e3:.4f}), "
+        f"{rows_fired / (iters * N_PODS):.4f} of pod rows fired per macro-tick")
 
     # bench-style window: run_ticks over a copy of the live pod SoA (the
     # simulator's own state stays where its host mirror says it is)
@@ -518,14 +533,15 @@ def tick_bound(params, n, ticks, rematches, out_bytes):
 
 
 def phase_measure(counts, pod_sim, wide_sim, smi):
+    from kwok_tpu_torch.ops import kernels
     from kwok_tpu_torch.ops import tick as T
 
     entries = []
     src_tick = "kwok_tpu_torch/csrc/tick.cu"
 
-    def entry(name, source, replaces, ms, plain_ms, bound, err, library_ms=None):
+    def entry(name, shape, source, replaces, ms, plain_ms, bound, err, library_ms=None):
         entries.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
+            name=name, shape=shape, route="cuda", source=source, replaces=replaces,
             launches=counts[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
             bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms))
         log(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
@@ -545,7 +561,8 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
                     clone_soa(live), 20)
     plain_ms = chained_ms(lambda s: T._run_ticks_collect_impl(params, s, DT_MS, MACRO_K)[0],
                           clone_soa(live), 2)
-    entry("run_ticks_collect", src_tick, "kwok_tpu/ops/tick.py:241", ms, plain_ms,
+    entry("run_ticks_collect", f"{N_PODS:,} pod rows, K=8 (the main path's macro-tick)",
+          src_tick, "kwok_tpu/ops/tick.py:241", ms, plain_ms,
           tick_bound(params, N_PODS, MACRO_K, fired + rematch0, MACRO_K * N_PODS), err)
 
     # run_ticks at the bench window's shape: 1M pods, K=600
@@ -559,10 +576,11 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
     assert_soa_equal("main-shape run_ticks", ks, ps)
     err = max_abs_err([(kc, pc)] + list(zip(ks, ps)))
     ms = chained_ms(lambda s: T.run_ticks(params, s, DT_MS, BENCH_TICKS)[0], clone_soa(live), 3)
-    entry("run_ticks", src_tick, "kwok_tpu/ops/tick.py:323", ms, plain_ms,
+    entry("run_ticks", f"{N_PODS:,} pod rows, K=600 (the bench-style window)",
+          src_tick, "kwok_tpu/ops/tick.py:323", ms, plain_ms,
           tick_bound(params, N_PODS, BENCH_TICKS, int(kc) + rematch0, 4), err)
 
-    # tick at the wide set's shape: 1M pods, S > 126
+    # tick at the wide set's shape: 1M pods, S = 128 (branch coverage)
     wparams, wlive = wide_sim.to_device()
     rematch0 = int(wlive.rematch.sum())
     ks, ps = clone_soa(wlive), clone_soa(wlive)
@@ -574,7 +592,9 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
     err = max_abs_err(list(zip(ko, po)) + list(zip(ks, ps)))
     ms = chained_ms(lambda s: T.tick(wparams, s, DT_MS)[0], clone_soa(wlive), 20)
     plain_ms = chained_ms(lambda s: T._tick_impl(wparams, s, DT_MS)[0], clone_soa(wlive), 3)
-    entry("tick", src_tick, "kwok_tpu/ops/tick.py:217", ms, plain_ms,
+    entry("tick", f"{N_PODS:,} pod rows, S={WIDE_STAGES}: a synthetic set that covers "
+          "the >126-stage branch, not a user workload",
+          src_tick, "kwok_tpu/ops/tick.py:217", ms, plain_ms,
           tick_bound(wparams, N_PODS, 1, int(ko.fired_count) + rematch0, 6 * N_PODS + 4), err)
 
     # scatter_rows at the churn's shape: 30,000 rows padded to 32,768
@@ -585,11 +605,16 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
     T._scatter_rows_impl(ps, *batch)
     assert_soa_equal("main-shape scatter_rows", ks, ps)
     err = max_abs_err(list(zip(ks, ps)))
-    ms = cuda_ms(lambda: T.scatter_rows(ks, *batch), 50)
+    # the kernel against the plain version; the wrapper adds its range
+    # check (one min/max reduction and one sync), timed on its own
+    ms = cuda_ms(lambda: kernels.scatter_rows(ks, *batch), 50)
     plain_ms = cuda_ms(lambda: T._scatter_rows_impl(ps, *batch), 20)
+    wrapper_ms = cuda_ms(lambda: T.scatter_rows(ks, *batch), 20)
+    log(f"scatter_rows wrapper with its range check: {wrapper_ms:.4f} ms  [{smi}]")
     B, C = batch[1].shape
     nbytes = B * 4 + 2 * B * (C * 4 + 5 * 4 + 2)  # indices; batch read; rows written
-    entry("scatter_rows", "kwok_tpu_torch/csrc/scatter.cu", "kwok_tpu/ops/tick.py:275",
+    entry("scatter_rows", f"{B:,} rows (the churn's {k:,}, padded)",
+          "kwok_tpu_torch/csrc/scatter.cu", "kwok_tpu/ops/tick.py:275",
           ms, plain_ms, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), err)
     order = ["tick", "run_ticks_collect", "run_ticks", "scatter_rows"]
     return sorted(entries, key=lambda e: order.index(e["name"]))

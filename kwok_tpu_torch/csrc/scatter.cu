@@ -9,7 +9,8 @@
 // its index) and written once; there is no arithmetic to speak of.
 // Duplicate indices (the power-of-two padding repeats a real row) carry
 // equal values, so the order in which threads write them does not matter.
-// An index outside [0, n) is skipped, never written.
+// The wrapper (kwok_tpu_torch/ops/tick.py::scatter_rows) has checked that
+// every index lies in [0, n).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,7 +36,6 @@ struct ScatterArgs {
   const uint8_t* src_active;
   const uint8_t* src_rematch;
   const int32_t* src_del_ts;
-  int64_t n;
   int64_t b;
   int32_t C;
 };
@@ -46,7 +46,6 @@ __global__ void scatter_rows_kernel(ScatterArgs a) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.b) return;
   const int64_t r = a.rows[i];
-  if (r < 0 || r >= a.n) return;
   for (int c = 0; c < a.C; ++c) a.features[r * a.C + c] = a.src_features[i * a.C + c];
   a.sig[r] = a.src_sig[i];
   a.ovc[r] = a.src_ovc[i];

@@ -133,7 +133,7 @@ ScatterArgs = _struct("ScatterArgs", [
         "features", "sig", "ovc", "stage", "fire_at", "active", "rematch", "del_ts",
         "rows", "src_features", "src_sig", "src_ovc", "src_stage", "src_fire_at",
         "src_active", "src_rematch", "src_del_ts")],
-    ("n", ctypes.c_int64), ("b", ctypes.c_int64), ("C", ctypes.c_int32),
+    ("b", ctypes.c_int64), ("C", ctypes.c_int32),
 ])
 
 
@@ -251,7 +251,7 @@ def scatter_rows(soa, rows, features, sig, ovc, stage, fire_at, active, rematch,
         setattr(a, "src_" + f, _check("batch " + f, t, b, (B,), dev))
     if B == 0:
         raise ValueError("scatter_rows needs at least one row")
-    a.n, a.b, a.C = N, B, C
+    a.b, a.C = B, C
     lib = _lib("scatter.cu")
     with torch.cuda.device(dev):
         _raise_on(lib.kwok_scatter_rows(ctypes.byref(a), _stream(dev)), "kwok_scatter_rows")

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from kwok_tpu_torch.ops.device import resolve_device
+
 M32 = 0xFFFFFFFF
 KS_PARITY = 0x1BD11BDA
 ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -53,8 +55,10 @@ def threefry2x32(k0, k1, x0: torch.Tensor, x1: torch.Tensor):
 
 
 def prng_key(seed: int, device=None) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)``: the uint32 pair ``[0, seed mod 2**32]``."""
-    return torch.from_numpy(np.array([0, int(seed) & M32], np.uint32)).to(device)
+    """``jax.random.PRNGKey(seed)``: the uint32 pair ``[0, seed mod 2**32]``,
+    on the card unless ``device`` says otherwise."""
+    key = torch.from_numpy(np.array([0, int(seed) & M32], np.uint32))
+    return key.to(resolve_device(device))
 
 
 def _words(key: torch.Tensor):

@@ -38,6 +38,7 @@ import torch
 
 from kwok_tpu_torch.engine.compiler import IDLE, NEVER, SENTINEL, CompiledStageSet
 from kwok_tpu_torch.ops import kernels, prng
+from kwok_tpu_torch.ops.device import resolve_device
 
 
 class TickParams(NamedTuple):
@@ -81,18 +82,6 @@ class TickOut(NamedTuple):
     fired_stage: torch.Tensor  # [N] int32 — stage that fired (IDLE otherwise)
     deleted: torch.Tensor  # [N] bool — rows deleted this tick
     fired_count: torch.Tensor  # [] int32
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; raises when PyTorch sees no CUDA device."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: kwok_tpu_torch runs on the GPU unless "
-                "device='cpu' is passed"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def _tensors(cls, d: Dict[str, np.ndarray], device) -> NamedTuple:
@@ -338,8 +327,16 @@ def scatter_rows(
     rematch: torch.Tensor,
     del_ts: torch.Tensor,
 ) -> SoA:
-    """Write a batch of rows (each in [0, N)) into the SoA in place."""
+    """Write a batch of rows into the SoA in place.  Every row must lie
+    in [0, N), else it raises on either device (one sync on the card);
+    an empty batch leaves the SoA as it is."""
     batch = (rows, features, sig, ovc, stage, fire_at, active, rematch, del_ts)
+    if rows.numel() == 0:
+        return soa
+    lo, hi = torch.stack(torch.aminmax(rows)).tolist()
+    n = soa.features.shape[0]
+    if lo < 0 or hi >= n:
+        raise IndexError(f"scatter_rows: rows span [{lo}, {hi}], outside [0, {n})")
     if not _on_cuda(soa.features):
         return _scatter_rows_impl(soa, *batch)
     kernels.scatter_rows(soa, *batch)

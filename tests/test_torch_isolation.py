@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from kwok_tpu_torch.engine.simulator import DeviceSimulator
+from kwok_tpu_torch.ops import prng
 from kwok_tpu_torch.ops import tick as tt
 from kwok_tpu_torch.stages import load_builtin
 
@@ -70,6 +71,8 @@ def test_entry_points_raise_without_cuda():
         DeviceSimulator(load_builtin("pod-fast"), capacity=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         tt.resolve_device(None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        prng.prng_key(0)
 
 
 def test_wrappers_refuse_devices_without_kernel_or_plain_version():

@@ -22,14 +22,14 @@ def bits_u32(x) -> np.ndarray:
 
 @pytest.mark.parametrize("seed", SEEDS)
 def test_key_matches_prngkey(seed):
-    assert np.array_equal(np.asarray(jax.random.PRNGKey(seed)), prng.prng_key(seed).numpy())
-    assert prng.prng_key(seed).dtype == torch.uint32
+    assert np.array_equal(np.asarray(jax.random.PRNGKey(seed)), prng.prng_key(seed, 'cpu').numpy())
+    assert prng.prng_key(seed, 'cpu').dtype == torch.uint32
 
 
 @pytest.mark.parametrize("n", LENGTHS)
 @pytest.mark.parametrize("seed", SEEDS)
 def test_split_and_uniform_bit_exact(seed, n):
-    jkey, tkey = jax.random.PRNGKey(seed), prng.prng_key(seed)
+    jkey, tkey = jax.random.PRNGKey(seed), prng.prng_key(seed, 'cpu')
     assert np.array_equal(np.asarray(jax.random.split(jkey, n)), prng.split(tkey, n).numpy())
     ju = np.asarray(jax.random.uniform(jkey, (n,)))
     tu = prng.uniform(tkey, n).numpy()
@@ -42,7 +42,7 @@ def test_split_and_uniform_bit_exact(seed, n):
 
 def test_fifty_step_key_chain():
     """The tick's chain: key, k_choice, k_jitter = split(key, 3)."""
-    jkey, tkey = jax.random.PRNGKey(7), prng.prng_key(7)
+    jkey, tkey = jax.random.PRNGKey(7), prng.prng_key(7, 'cpu')
     for step in range(50):
         jk = jax.random.split(jkey, 3)
         tk = prng.split(tkey, 3)
@@ -56,7 +56,7 @@ def test_fifty_step_key_chain():
 
 def test_uniform_is_mantissa_of_top_bits():
     """uniform = bitcast((bits >> 9) | 0x3F800000) - 1, in [0, 1)."""
-    key = prng.prng_key(3)
+    key = prng.prng_key(3, 'cpu')
     b = prng.bits(key, 4096).numpy().astype(np.uint32)
     want = ((b >> 9) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
     got = prng.uniform(key, 4096).numpy()

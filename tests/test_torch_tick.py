@@ -376,3 +376,17 @@ def test_scatter_rows_duplicates_and_empty_batch():
     scatter_both(js, ts, batch)
     empty = [a[:0] for a in batch]
     assert tt.scatter_rows(ts, *[torch.from_numpy(a) for a in empty]) is ts
+
+
+@pytest.mark.parametrize("bad_row", [-1, 64])
+def test_scatter_rows_refuses_rows_outside_the_soa(bad_row):
+    """Both routes raise on a row outside [0, N) before writing anything."""
+    _, _, pd, sd = start("pod-general", n=64)
+    _, ts = to_torch(pd, sd)
+    batch = [torch.from_numpy(a) for a in mid_run_batch(ts, np.random.default_rng(7))]
+    batch[0] = batch[0].clone()
+    batch[0][-1] = bad_row
+    before = [t.clone() for t in ts]
+    with pytest.raises(IndexError, match="outside"):
+        tt.scatter_rows(ts, *batch)
+    assert all(torch.equal(a, b) for a, b in zip(before, ts))
