@@ -10,7 +10,8 @@ Phases, in order; any failure raises and exits non-zero:
 2. every kernel against its plain PyTorch version on the card, bit for
    bit (``torch.equal``: the FSM is integer-exact and the PRNG is
    reproduced), on seeded random states of three stage sets at
-   N = 4,096 and N = 1,000,003;
+   N = 4,096 and N = 1,000,003, and the lease lane's ``lease_tick`` at
+   16, 16,384 and 1,000,003 slots;
 3. the main path through ``DeviceSimulator`` at full width: 1,000,000
    pods of pod-general + pod-chaos and 10,000 nodes of the default lease
    node stages (as the reference ``bench.py`` builds them): macro-ticks
@@ -20,10 +21,23 @@ Phases, in order; any failure raises and exits non-zero:
    128-stage set (only to cover the per-tick int32 branch for more than
    126 stages), then macro-ticks timed for 10 s and a bench-style
    ``run_ticks`` window;
-   every kernel's launch count must be positive;
-4. each kernel timed at the main path's shapes beside its plain version
-   and its bound, printed as one ``{"kernels": [...]}`` line.
+   each of its kernels' launch counts must be positive;
+4. each kernel timed at the main path's shapes (CUDA events over
+   chained calls, and its device time from torch.profiler) beside its
+   plain version and its bound;
+5. the device backend of the Controller facade, as ``kwok --backend
+   device`` runs it: a ResourceStore of 10,000 Nodes and 100,000 Pods
+   (pod-general + pod-chaos, labelled for container-failure chaos, 10
+   per node), ``Controller(backend="device")`` started paced, both kinds
+   on device players and node leases renewed by the device lease lane;
+   after every row's first transition, one timed window of 30 s
+   (transitions/s, the pod player's time split, tick-lag and
+   heartbeat-lag p99, renewals, launches).  It fails when a kind is not
+   on a device player, no lane is attached, a kernel was not launched in
+   the window, renewals fall short of the lease cadence, or a tick loop
+   printed a traceback.
 
+Then the ``{"kernels": [...]}`` line.
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA
 device, or without the ``kwok_tpu_torch`` package beside this file, it
 exits non-zero and prints no result.
@@ -35,7 +49,9 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
+from collections import Counter
 
 import numpy as np
 import torch
@@ -53,6 +69,17 @@ SAMPLE = 1_000
 WIDE_STAGES = 128
 WIDE_TAGGED = 1_000
 PARITY_NS = (4_096, 1_000_003)
+LEASE_PARITY_NS = (16, 16_384, 1_000_003)
+# the facade phase: the lane has device_capacity slots.  Its pods are
+# cut from 1,000,000 to 100,000: the card's host admits and warms
+# 10,000 nodes' worth of pods at a few hundred pods/s (every node name
+# is a new pod signature to explore), so 1,000,000 pods would not warm
+# inside the script's time limit.
+LANE_CAPACITY = 1_048_576
+FACADE_PODS = 100_000
+FACADE_WINDOW_S = 30.0
+# admission of every row and its first transition must end by then
+FACADE_DEADLINE_S = 600.0
 
 # Least-time model: H100 SXM, 3.35 TB/s HBM.
 # The integer pipe has 64 INT32 lanes per SM (Hopper white paper), half
@@ -269,7 +296,49 @@ def phase_parity(device):
             assert_equal(f"threefry split seed={seed} n={n}", pairs, prng.split(key, n))
             assert_equal(f"threefry uniform seed={seed} n={n}", u.view(torch.int32),
                          prng.uniform(key, n).view(torch.int32))
+    for n in LEASE_PARITY_NS:
+        lease_parity(n, device)
     log(f"parity threefry split/uniform: equal; phase 2 took {time.perf_counter() - t0:.1f} s")
+
+
+def lease_state(n: int, now: int, seed: int, device):
+    """A seeded lease lane around ``now``: empty (NEVER) slots, slots due
+    exactly now, overdue and future slots."""
+    from kwok_tpu_torch.engine.compiler import NEVER
+    from kwok_tpu_torch.ops import prng
+    from kwok_tpu_torch.ops.tick import LeaseLane
+
+    rng = np.random.default_rng(seed)
+    fire = (now + rng.integers(-20_000, 20_000, n)).astype(np.int32)
+    fire[rng.random(n) < 0.25] = NEVER
+    fire[rng.random(n) < 0.1] = now
+    fire[: min(n, 4)] = (NEVER, now, now - 1, now + 1)[: min(n, 4)]
+    return LeaseLane(fire_at=torch.from_numpy(fire).to(device), key=prng.prng_key(seed, device))
+
+
+def lease_parity(n: int, device) -> None:
+    """lease_tick against its plain version: each call chained on the
+    lane the last one left, over renew/jitter pairs that include no
+    jitter and sums that wrap int32."""
+    from kwok_tpu_torch.ops import tick as T
+
+    now = 50_000
+    k = p = lease_state(n, now, n % 1000, device)
+    due_seen = 0
+    for renew, jitter, step in ((10_000, 400, 0), (10_000, 0, 3_000), (2**30, 2**29, 4_000),
+                                (10_000, 400, 20_000), (1, 1, 1)):
+        now += step
+        k, kd, kl = T.lease_tick(k, now, renew, jitter)
+        p, pd, pl = T._lease_tick_impl(p, now, renew, jitter)
+        label = f"lease_tick n={n} now={now} renew={renew} jitter={jitter}"
+        assert_equal(f"{label} fire_at", k.fire_at, p.fire_at)
+        assert_equal(f"{label} due", kd, pd)
+        assert_equal(f"{label} lag", kl, pl)
+        assert_equal(f"{label} key", k.key, p.key)
+        due_seen += int(kd.sum())
+    if due_seen == 0:
+        raise AssertionError(f"lease_tick n={n}: no slot came due")
+    log(f"parity lease_tick n={n}: 5 chained ticks ({due_seen} renewals): equal")
 
 
 def scatter_batch(soa, cset, k: int, seed: int, device):
@@ -477,7 +546,8 @@ def phase_main_path():
         f"{n_fired / w:.0f} transitions/s ({n_fired} fired)")
     counts = T.launches()
     log(f"main path launches: {counts}")
-    missing = [k for k, v in counts.items() if v <= 0]
+    missing = [k for k in ("tick", "run_ticks_collect", "run_ticks", "scatter_rows")
+               if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     return counts, pod_sim, wide_sim
@@ -499,8 +569,25 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def chained_ms(fn, soa, reps: int) -> float:
-    """cuda_ms of ``soa = fn(soa)``: each call continues from the state,
+def device_ms(fn, reps: int):
+    """Mean device time in ms of the kernels ``fn`` launches, over
+    ``reps`` calls, from torch.profiler's CUDA activity (None when the
+    profiler records none).  Unlike cuda_ms it leaves out the host's
+    dispatch, which bounds cuda_ms for kernels shorter than it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    return total_us / reps / 1e3 if total_us > 0 else None
+
+
+def chained(fn, soa):
+    """A call of ``soa = fn(soa)``: each call continues from the state,
     clock and key the last one left, as the simulator's calls do (a
     repeat from the same clock would find the rows already re-armed)."""
     state = [soa]
@@ -508,7 +595,11 @@ def chained_ms(fn, soa, reps: int) -> float:
     def call():
         state[0] = fn(state[0])
 
-    return cuda_ms(call, reps)
+    return call
+
+
+def chained_ms(fn, soa, reps: int) -> float:
+    return cuda_ms(chained(fn, soa), reps)
 
 
 def row_bytes(C: int) -> int:
@@ -539,13 +630,14 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
     entries = []
     src_tick = "kwok_tpu_torch/csrc/tick.cu"
 
-    def entry(name, shape, source, replaces, ms, plain_ms, bound, err, library_ms=None):
+    def entry(name, shape, source, replaces, ms, dev_ms, plain_ms, bound, err, library_ms=None):
         entries.append(dict(
             name=name, shape=shape, route="cuda", source=source, replaces=replaces,
-            launches=counts[name], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms))
-        log(f"{name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound[0]:.4f} ms "
-            f"({bound[1]}), max_abs_err {err}  [{smi}]")
+            launches=counts.get(name), max_abs_err=err, ms=ms, device_ms=dev_ms,
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms))
+        dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
+        log(f"{name}: {ms:.4f} ms (device time {dev}), plain {plain_ms:.4f} ms, "
+            f"bound {bound[0]:.4f} ms ({bound[1]}), max_abs_err {err}  [{smi}]")
 
     # run_ticks_collect at the production shape: 1M pods, K=8
     params, live = pod_sim.to_device()
@@ -557,12 +649,13 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
     assert_soa_equal("main-shape run_ticks_collect", ks, ps)
     err = max_abs_err([(kst, pst)] + list(zip(ks, ps)))
     fired = int((kst >= 0).sum())
-    ms = chained_ms(lambda s: T.run_ticks_collect(params, s, DT_MS, MACRO_K)[0],
-                    clone_soa(live), 20)
+    collect = lambda s: T.run_ticks_collect(params, s, DT_MS, MACRO_K)[0]  # noqa: E731
+    ms = chained_ms(collect, clone_soa(live), 20)
+    dev_ms = device_ms(chained(collect, clone_soa(live)), 20)
     plain_ms = chained_ms(lambda s: T._run_ticks_collect_impl(params, s, DT_MS, MACRO_K)[0],
                           clone_soa(live), 2)
     entry("run_ticks_collect", f"{N_PODS:,} pod rows, K=8 (the main path's macro-tick)",
-          src_tick, "kwok_tpu/ops/tick.py:241", ms, plain_ms,
+          src_tick, "kwok_tpu/ops/tick.py:241", ms, dev_ms, plain_ms,
           tick_bound(params, N_PODS, MACRO_K, fired + rematch0, MACRO_K * N_PODS), err)
 
     # run_ticks at the bench window's shape: 1M pods, K=600
@@ -575,9 +668,11 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
     assert_equal("main-shape run_ticks count", kc, pc)
     assert_soa_equal("main-shape run_ticks", ks, ps)
     err = max_abs_err([(kc, pc)] + list(zip(ks, ps)))
-    ms = chained_ms(lambda s: T.run_ticks(params, s, DT_MS, BENCH_TICKS)[0], clone_soa(live), 3)
+    window = lambda s: T.run_ticks(params, s, DT_MS, BENCH_TICKS)[0]  # noqa: E731
+    ms = chained_ms(window, clone_soa(live), 3)
+    dev_ms = device_ms(chained(window, clone_soa(live)), 3)
     entry("run_ticks", f"{N_PODS:,} pod rows, K=600 (the bench-style window)",
-          src_tick, "kwok_tpu/ops/tick.py:323", ms, plain_ms,
+          src_tick, "kwok_tpu/ops/tick.py:323", ms, dev_ms, plain_ms,
           tick_bound(params, N_PODS, BENCH_TICKS, int(kc) + rematch0, 4), err)
 
     # tick at the wide set's shape: 1M pods, S = 128 (branch coverage)
@@ -590,11 +685,13 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
         assert_equal(f"main-shape tick out.{f}", getattr(ko, f), getattr(po, f))
     assert_soa_equal("main-shape tick", ks, ps)
     err = max_abs_err(list(zip(ko, po)) + list(zip(ks, ps)))
-    ms = chained_ms(lambda s: T.tick(wparams, s, DT_MS)[0], clone_soa(wlive), 20)
+    one = lambda s: T.tick(wparams, s, DT_MS)[0]  # noqa: E731
+    ms = chained_ms(one, clone_soa(wlive), 20)
+    dev_ms = device_ms(chained(one, clone_soa(wlive)), 20)
     plain_ms = chained_ms(lambda s: T._tick_impl(wparams, s, DT_MS)[0], clone_soa(wlive), 3)
     entry("tick", f"{N_PODS:,} pod rows, S={WIDE_STAGES}: a synthetic set that covers "
           "the >126-stage branch, not a user workload",
-          src_tick, "kwok_tpu/ops/tick.py:217", ms, plain_ms,
+          src_tick, "kwok_tpu/ops/tick.py:217", ms, dev_ms, plain_ms,
           tick_bound(wparams, N_PODS, 1, int(ko.fired_count) + rematch0, 6 * N_PODS + 4), err)
 
     # scatter_rows at the churn's shape: 30,000 rows padded to 32,768
@@ -608,6 +705,7 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
     # the kernel against the plain version; the wrapper adds its range
     # check (one min/max reduction and one sync), timed on its own
     ms = cuda_ms(lambda: kernels.scatter_rows(ks, *batch), 50)
+    dev_ms = device_ms(lambda: kernels.scatter_rows(ks, *batch), 50)
     plain_ms = cuda_ms(lambda: T._scatter_rows_impl(ps, *batch), 20)
     wrapper_ms = cuda_ms(lambda: T.scatter_rows(ks, *batch), 20)
     log(f"scatter_rows wrapper with its range check: {wrapper_ms:.4f} ms  [{smi}]")
@@ -615,9 +713,304 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
     nbytes = B * 4 + 2 * B * (C * 4 + 5 * 4 + 2)  # indices; batch read; rows written
     entry("scatter_rows", f"{B:,} rows (the churn's {k:,}, padded)",
           "kwok_tpu_torch/csrc/scatter.cu", "kwok_tpu/ops/tick.py:275",
-          ms, plain_ms, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), err)
-    order = ["tick", "run_ticks_collect", "run_ticks", "scatter_rows"]
+          ms, dev_ms, plain_ms, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), err)
+    # lease_tick at the facade's lane: LANE_CAPACITY slots, N_NODES live
+    # with fire times spread over one renew interval plus its jitter,
+    # ticked every DT_MS as the node player ticks it
+    from kwok_tpu_torch.engine.compiler import NEVER
+    from kwok_tpu_torch.ops import prng
+
+    renew, jitter = 10_000, 400
+    fire = np.full(LANE_CAPACITY, NEVER, np.int32)
+    fire[:N_NODES] = np.random.default_rng(5).integers(0, renew + jitter, N_NODES)
+    lane0 = T.LeaseLane(fire_at=torch.from_numpy(fire).to(live.features.device),
+                        key=prng.prng_key(5, live.features.device))
+    reps = 200
+    # the due slots of the timed calls, counted on the plain version
+    # (the operation term of the bound: two threefry draws per renewal)
+    due_total, lane, now = 0, lane0, 0
+    for _ in range(reps):
+        now += DT_MS
+        lane, due, _ = T._lease_tick_impl(lane, now, renew, jitter)
+        due_total += int(due.sum())
+    k, kd, kl = T.lease_tick(lane0, DT_MS, renew, jitter)
+    p, pd, pl = T._lease_tick_impl(lane0, DT_MS, renew, jitter)
+    pairs = [(k.fire_at, p.fire_at), (kd, pd), (kl, pl), (k.key, p.key)]
+    for (got, want), f in zip(pairs, ("fire_at", "due", "lag", "key")):
+        assert_equal(f"main-shape lease_tick {f}", got, want)
+    err = max_abs_err(pairs)
+
+    def lease_chain(fn):
+        """A call of ``fn`` on the lane the last one left, at a later now."""
+        state = [lane0, 0]
+
+        def call():
+            state[1] += DT_MS
+            state[0] = fn(state[0], state[1], renew, jitter)[0]
+
+        return call
+
+    ms = cuda_ms(lease_chain(T.lease_tick), reps)
+    dev_ms = device_ms(lease_chain(T.lease_tick), reps)
+    plain_ms = cuda_ms(lease_chain(T._lease_tick_impl), reps)
+    nbytes = LANE_CAPACITY * (4 + 4 + 1 + 4) + 2 * 8  # fire_at in; fire_at, due, lag out; keys
+    ops = LANE_CAPACITY * ROW_TICK_OPS + due_total / reps * 2 * DRAW_OPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    entry("lease_tick", f"{LANE_CAPACITY:,} slots, {N_NODES:,} live "
+          f"({due_total / reps:.1f} due per {DT_MS} ms tick; the facade's lane)",
+          "kwok_tpu_torch/csrc/lease.cu", "kwok_tpu/ops/tick.py:305", ms, dev_ms, plain_ms,
+          (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"), err)
+    order = ["tick", "run_ticks_collect", "run_ticks", "scatter_rows", "lease_tick"]
     return sorted(entries, key=lambda e: order.index(e["name"]))
+
+
+# ------------------------------------------------------------------ phase 5
+
+
+class TracebackCounter:
+    """``sys.stderr``, passed through, counting the tracebacks printed on
+    it: the players' tick loops print and survive what they catch."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.count = 0
+
+    def write(self, text):
+        self.count += text.count("Traceback (most recent call last)")
+        return self.inner.write(text)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+class StackSampler(threading.Thread):
+    """A sampling profiler of the players' tick threads: every
+    ``interval`` s it reads each thread's Python stack and counts every
+    function of this repository on it ("on_stack": the share of samples
+    a function, with what it calls, was running) and the innermost such
+    function ("innermost": its own code, or a call outside the
+    repository)."""
+
+    def __init__(self, threads, interval: float = 0.01):
+        super().__init__(daemon=True)
+        self.threads = threads  # name -> threading.Thread
+        self.interval = interval
+        self.done = threading.Event()
+        self.reset()
+
+    def run(self):
+        idents = {t.ident: name for name, t in self.threads.items()}
+        while not self.done.wait(self.interval):
+            frames = sys._current_frames()
+            for ident, name in idents.items():
+                f = frames.get(ident)
+                if f is None:
+                    continue
+                self.samples[name] += 1
+                seen = []
+                while f is not None:
+                    path = f.f_code.co_filename
+                    if path.startswith(HERE):
+                        seen.append(f"{os.path.relpath(path, HERE)}:{f.f_code.co_name}")
+                    f = f.f_back
+                self.on_stack[name].update(set(seen))
+                if seen:
+                    self.innermost[name][seen[0]] += 1
+
+    def reset(self):
+        self.samples = Counter()
+        self.on_stack = {name: Counter() for name in self.threads}
+        self.innermost = {name: Counter() for name in self.threads}
+
+    def top(self, k: int = 12) -> dict:
+        def shares(counter, n):
+            return {fn: round(c / max(n, 1), 4) for fn, c in counter.most_common(k)}
+
+        return {name: {"samples": self.samples[name],
+                       "on_stack": shares(self.on_stack[name], self.samples[name]),
+                       "innermost": shares(self.innermost[name], self.samples[name])}
+                for name in self.threads}
+
+
+def facade_pod(i: int, n_nodes: int) -> dict:
+    """The reference bench's chaos-labelled pod (``bench.py:681-697``),
+    bound to node ``i % n_nodes``."""
+    return {
+        "apiVersion": "v1",
+        "kind": "Pod",
+        "metadata": {
+            "name": f"pod-{i}",
+            "namespace": "default",
+            "uid": "uid",
+            "labels": {"pod-container-running-failed.stage.kwok.x-k8s.io": "true"},
+        },
+        "spec": {
+            "nodeName": f"node-{i % n_nodes}",
+            "containers": [{"name": "app", "image": "fake"}],
+        },
+        "status": {},
+    }
+
+
+def facade_node(i: int) -> dict:
+    return {"apiVersion": "v1", "kind": "Node", "metadata": {"name": f"node-{i}"},
+            "spec": {}, "status": {}}
+
+
+def rows_started(player) -> int:
+    """Rows whose object carries a status phase: the first stage of every
+    pod and node stage set writes one."""
+    return sum(1 for o in list(player.sim.objects)
+               if o is not None and (o.get("status") or {}).get("phase"))
+
+
+def p99(values) -> float:
+    v = sorted(values)
+    return v[int(0.99 * (len(v) - 1))] if v else float("nan")
+
+
+def phase_facade(smi, device):
+    """Phase 5: ``Controller(backend="device")`` on a full store, started
+    as the daemon starts it; returns the launches of the phase."""
+    import gc
+
+    from kwok_tpu_torch.api.config import KwokConfiguration
+    from kwok_tpu_torch.cluster.store import ResourceStore
+    from kwok_tpu_torch.controllers import Controller
+    from kwok_tpu_torch.controllers import device_player as DP
+    from kwok_tpu_torch.controllers.device_lease import DeviceLeaseLane
+    from kwok_tpu_torch.ops import tick as T
+    from kwok_tpu_torch.stages import default_node_stages, load_builtin
+
+    n_pods, n_nodes, window_s = FACADE_PODS, N_NODES, FACADE_WINDOW_S
+    deadline_s = FACADE_DEADLINE_S
+    t_phase = time.perf_counter()
+    store = ResourceStore()
+    for lo in range(0, n_nodes, 10_000):
+        store.bulk([{"verb": "create", "data": facade_node(i)}
+                    for i in range(lo, min(lo + 10_000, n_nodes))])
+    for lo in range(0, n_pods, 10_000):
+        store.bulk([{"verb": "create", "data": facade_pod(i, n_nodes)}
+                    for i in range(lo, min(lo + 10_000, n_pods))])
+    t_store = time.perf_counter() - t_phase
+    log(f"facade: store holds {store.count('Node')} nodes and {store.count('Pod')} pods "
+        f"({t_store:.1f} s); fast drain loaded: {DP._FAST is not None}")
+    conf = KwokConfiguration(manage_all_nodes=True, backend="device",
+                             device_capacity=LANE_CAPACITY)
+    ctr = Controller(
+        store, conf, seed=0, device=device,
+        local_stages={"Pod": load_builtin("pod-general") + load_builtin("pod-chaos"),
+                      "Node": default_node_stages(lease=True)})
+    # the daemon's GC tuning (kwok_tpu/cmd/kwok.py:368, :462-463)
+    gc.set_threshold(200_000, 100, 100)
+    tracebacks = TracebackCounter(sys.stderr)
+    sys.stderr = tracebacks
+    T.reset_launches()
+    try:
+        t_start = time.perf_counter()
+        ctr.start()
+        gc.collect()
+        gc.freeze()
+        missing = [k for k in ("Pod", "Node") if k not in ctr.device_players]
+        if missing:
+            raise AssertionError(f"facade: no device player for {missing}: "
+                                 f"{sorted(ctr.device_players)}")
+        pods, nodes = ctr.device_players["Pod"], ctr.device_players["Node"]
+        lane = ctr.node_leases._lane if ctr.node_leases is not None else None
+        if not isinstance(lane, DeviceLeaseLane) or nodes.post_tick != lane.tick:
+            raise AssertionError(f"facade: no device lease lane on the node player: {lane!r}")
+        sampler = StackSampler({"pod": pods._threads[0], "node": nodes._threads[0]})
+        sampler.start()
+
+        # admission of every row, every held lease on the lane, and the
+        # first transition of every row
+        deadline = t_start + deadline_s
+        admitted_at = started = None
+        last_log = time.perf_counter()
+        while True:
+            now = time.perf_counter()
+            if tracebacks.count:
+                raise AssertionError(f"facade: {tracebacks.count} tracebacks while warming")
+            if now > deadline:
+                raise AssertionError(
+                    f"facade: not warm after {deadline_s:.0f} s: {len(pods._rows)}/{n_pods} pods "
+                    f"and {len(nodes._rows)}/{n_nodes} nodes admitted, {len(lane)} leases on "
+                    f"the lane, {pods.transitions} pod transitions")
+            if admitted_at is None and len(pods._rows) == n_pods and len(nodes._rows) == n_nodes:
+                admitted_at = now
+                log(f"facade: admitted {n_pods} pods and {n_nodes} nodes in "
+                    f"{now - t_start:.1f} s ({n_pods / (now - t_start):.0f} pods/s)")
+            if (admitted_at is not None and len(lane) == n_nodes
+                    and pods.transitions >= n_pods and nodes.transitions >= n_nodes):
+                started = (rows_started(pods), rows_started(nodes))
+                if started == (n_pods, n_nodes):
+                    break
+            if now - last_log > 30:
+                last_log = now
+                log(f"facade: warming, {now - t_start:.0f} s: {len(pods._rows)} pods and "
+                    f"{len(nodes._rows)} nodes admitted, {len(lane)} leases on the lane, "
+                    f"{pods.transitions} pod transitions, rows started {started}")
+            time.sleep(2.0)
+        t_warm = time.perf_counter() - t_start
+        log(f"facade: every row admitted and past its first transition, {len(lane)} leases "
+            f"on the lane, after {t_warm:.1f} s ({pods.transitions} pod transitions)")
+        log("facade: tick threads while warming, share of samples: " + json.dumps(sampler.top()))
+        sampler.reset()
+
+        # the timed window
+        before = dict(T.launches())
+        tr0 = (pods.transitions, nodes.transitions)
+        d0, s0, h0, b0 = pods.t_device, pods.t_store, pods.t_host, pods.t_build
+        r0, tb0 = lane.renew_count, tracebacks.count
+        t0 = time.perf_counter()
+        time.sleep(window_s)
+        wall = time.perf_counter() - t0
+        after = dict(T.launches())
+        sampler.done.set()
+        log("facade: tick threads in the window, share of samples: " + json.dumps(sampler.top()))
+        renewals = lane.renew_count - r0
+        build = pods.t_build - b0
+        line = {
+            "pods": n_pods, "pods_cut_from": N_PODS, "nodes": n_nodes, "lane_slots": len(lane._fire_np),
+            "window_s": wall,
+            "transitions_per_s": (pods.transitions - tr0[0] + nodes.transitions - tr0[1]) / wall,
+            "pod_transitions_per_s": (pods.transitions - tr0[0]) / wall,
+            "node_transitions_per_s": (nodes.transitions - tr0[1]) / wall,
+            "breakdown_s": {
+                "device_tick_s": pods.t_device - d0,
+                "store_bulk_s": pods.t_store - s0,
+                "host_build_s": build,
+                "host_drain_s": pods.t_host - h0 - build,
+            },
+            "tick_lag_p99_s": p99(pods.tick_lags),
+            "node_tick_lag_p99_s": p99(nodes.tick_lags),
+            "renewals": renewals,
+            "renew_lag_p99_s": p99(lane.renew_lags),
+            "launches_in_window": {k: after[k] - before[k] for k in after},
+            "fast_drain_loaded": DP._FAST is not None,
+            "store_fill_s": t_store,
+            "admit_s": admitted_at - t_start,
+            "admitted_pods_per_s": n_pods / (admitted_at - t_start),
+            "warm_s": t_warm,
+            "device": smi,
+        }
+        log("facade: " + json.dumps(line))
+        grew = [k for k in ("run_ticks_collect", "lease_tick")
+                if line["launches_in_window"][k] <= 0]
+        if grew:
+            raise AssertionError(f"facade: kernels not launched in the window: {grew}")
+        renew_s = ctr.node_leases.renew_interval * (1 + ctr.node_leases.renew_jitter)
+        want = 0.9 * n_nodes * wall / renew_s
+        if renewals < want:
+            raise AssertionError(f"facade: {renewals} lease renewals in {wall:.1f} s, "
+                                 f"want at least {want:.0f}")
+        if tracebacks.count:
+            raise AssertionError(f"facade: the tick loops printed {tracebacks.count} tracebacks")
+        return dict(after)
+    finally:
+        sys.stderr = tracebacks.inner
+        ctr.stop()
+        gc.unfreeze()
 
 
 def main() -> int:
@@ -633,6 +1026,12 @@ def main() -> int:
     phase_parity(device)
     counts, pod_sim, wide_sim = phase_main_path()
     kernels_line = phase_measure(counts, pod_sim, wide_sim, smi)
+    del pod_sim, wide_sim
+    torch.cuda.empty_cache()
+    facade_counts = phase_facade(smi, device)
+    for e in kernels_line:
+        if e["name"] == "lease_tick":
+            e["launches"] = facade_counts["lease_tick"]
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,3020 @@
+"""In-process resource store with kube-apiserver semantics.
+
+The reference's communication backend *is* the kube-apiserver: watch
+streams in, PATCH/DELETE + Events out (SURVEY.md §2.9). This store is
+the standalone equivalent — the bus every other component rides:
+
+- monotonically increasing global resourceVersion; every mutation bumps
+  it and appends to a bounded per-type history ring so watchers can
+  resume from a version (too-old resume raises ``Expired`` and the
+  informer re-lists, mirroring watch-gone semantics).
+- CRUD + patch (json / merge / strategic) with subresource isolation
+  (a ``status`` patch can only change ``status``, like the apiserver's
+  subresource routing).
+- finalizer-aware graceful delete: delete on an object with finalizers
+  sets ``deletionTimestamp`` (reference stages then remove finalizers
+  via JSON-Patch, pkg/utils/lifecycle/finalizers.go:32-116); the object
+  is reaped when its finalizer list empties.
+- label/field selector filtering on list and watch (the informer's
+  ``spec.nodeName`` pod re-list rides this — reference
+  controller.go:559-573).
+
+An HTTP facade with kube-API routes sits on top for out-of-process
+clients — ``kwok_tpu_torch.cluster.apiserver`` owns the listener and
+``kwok_tpu_torch.cluster.k8s_api`` the route handlers; in-process
+controllers use this object directly (the Go↔device bridge boundary).
+"""
+
+from __future__ import annotations
+
+import datetime
+import threading
+import time
+from collections import OrderedDict, deque
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple, Union
+
+from kwok_tpu_torch.cluster.wal import StorageDegraded, WalExhausted
+from kwok_tpu_torch.utils import telemetry as _telemetry
+from kwok_tpu_torch.utils import trace as _trace
+from kwok_tpu_torch.utils.clock import Clock, RealClock
+from kwok_tpu_torch.utils.locks import guarded, make_lock, make_rlock
+from kwok_tpu_torch.utils.patch import apply_patch
+
+# drain accelerator (native/kwok_fastdrain.c); None -> pure Python
+from kwok_tpu_torch.native.fastdrain import load as _load_fastdrain
+
+_FAST = _load_fastdrain()
+
+ADDED = "ADDED"
+MODIFIED = "MODIFIED"
+DELETED = "DELETED"
+SYNC = "SYNC"  # informer re-list marker, never emitted by the store
+
+#: observed rv-commit -> watcher-delivery lag (SLO telemetry; shard
+#: labels attribute the sharded MergedWatcher fan-in path).  Both watch
+#: dialects feed this ONE family through observe_watch_delivery below.
+_H_WATCH_DELIVERY = _telemetry.histogram(
+    "kwok_watch_delivery_lag_seconds",
+    help="lag from rv commit to watch-stream delivery",
+    labelnames=("shard",),
+)
+
+
+def observe_watch_delivery(store, rv: int) -> None:
+    """One delivery-lag sample for a flushed watch burst: the store's
+    commit ring resolves the rv's commit instant (and owning shard, on
+    a sharded router); a miss just means the rv aged out of the
+    bounded ring.  Shared by both watch dialects
+    (``cluster/apiserver.py`` and ``cluster/k8s_api.py`` call it after
+    each burst flush) so the series can never diverge between them.
+    The same resolution feeds the per-object journey timeline: the
+    ring's identity slot names the object the rv committed, so the
+    delivery lands as one ``watch`` hop (deduped per rv — several
+    streams deliver the same commit)."""
+    if not _telemetry.enabled():
+        return
+    lag_fn = getattr(store, "delivery_lag", None)
+    hit = lag_fn(rv) if lag_fn is not None else None
+    if hit is None:
+        return
+    _H_WATCH_DELIVERY.observe(hit[0], hit[1])
+    meta_fn = getattr(store, "commit_meta", None)
+    meta = meta_fn(rv) if meta_fn is not None else None
+    if meta is not None:
+        ctx, uid, kind, ns, name = meta
+        _telemetry.journey().record(
+            uid,
+            kind,
+            ns,
+            name,
+            "watch",
+            dedupe_rv=rv,
+            rv=rv,
+            lag_s=round(hit[0], 6),
+            shard=hit[1],
+            trace_id=ctx[0] if ctx else "",
+        )
+
+#: the namespace-lifecycle finalizer (the apiserver's
+#: ``spec.finalizers: [kubernetes]`` analog; consumed by
+#: controllers/gc_controller.py)
+NS_FINALIZER = "kwok.x-k8s.io/namespace"
+
+#: kinds still writable in degraded (storage-exhausted) read-only mode:
+#: leader-election Leases ride the WAL's emergency reserve so HA does
+#: not collapse while the disk is full (cluster/election.py renews
+#: through the same store verbs everything else uses).  Scoped to the
+#: election namespace: per-node heartbeats (kube-node-lease, one per
+#: node) would drain the small reserve in minutes on a big cluster and
+#: starve the very renewals the exemption exists to protect.
+DEGRADED_EXEMPT_KINDS = frozenset({"lease", "leases"})
+
+#: the namespace whose Leases stay writable while degraded — the
+#: election Leases live here (cluster/election.py ELECTION_NAMESPACE;
+#: duplicated as a literal because election sits above the store in
+#: the layer map)
+DEGRADED_EXEMPT_NAMESPACE = "kube-system"
+
+
+class _AuditRing(deque):
+    """Bounded audit deque that *counts* what it evicts: a full ring
+    silently dropping its oldest entries would let trace-level
+    invariant checks (kwok_tpu_torch.dst) pass vacuously over a truncated
+    window.  ``dropped`` is surfaced as ``ResourceStore.audit_overflow``
+    (and at the apiserver's /metrics); the first overflow logs one
+    warning."""
+
+    def __init__(self, maxlen: int):
+        super().__init__(maxlen=maxlen)
+        self.dropped = 0
+
+    def append(self, item) -> None:
+        if self.maxlen is not None and len(self) == self.maxlen:
+            self.dropped += 1
+            if self.dropped == 1:
+                from kwok_tpu_torch.utils.log import get_logger
+
+                get_logger("store").warn(
+                    "audit ring overflowed; trace-level checks over "
+                    "audit_log() now see a truncated window",
+                    maxlen=self.maxlen,
+                )
+        super().append(item)
+
+
+class NotFound(KeyError):
+    pass
+
+
+class Conflict(ValueError):
+    """resourceVersion / CAS precondition failed."""
+
+
+class AlreadyExists(Conflict):
+    """create of an existing key — distinct from update conflicts so the
+    wire facade can report reason "AlreadyExists" vs "Conflict" (stock
+    client-go retry.RetryOnConflict keys on the reason string)."""
+
+
+class TransactionAborted(Conflict):
+    """:meth:`ResourceStore.transact` validation failed: NOTHING was
+    applied.  ``index`` names the offending op and ``reason`` carries
+    the k8s-style reason string the failing op would have produced
+    alone (NotFound / AlreadyExists / Conflict / Invalid) — the gang
+    scheduler keys its retry-vs-give-up decision on it."""
+
+    def __init__(self, index: int, reason: str, message: str):
+        super().__init__(message)
+        self.index = index
+        self.reason = reason
+
+
+class CrossShardTransaction(TransactionAborted):
+    """:meth:`ResourceStore.transact` stays single-shard-atomic by
+    contract: a sharded router
+    (``kwok_tpu/cluster/sharding/router.py``) refuses a txn whose ops
+    hash to more than one shard with this typed error instead of
+    attempting a 2PC.  Namespace-hash placement keeps legitimate gangs
+    shard-affine, so hitting this means the caller mixed namespaces
+    (or namespaced and cluster-scoped kinds) in one atomic batch —
+    rendered as 409 reason ``CrossShard`` on the wire, never a silent
+    partial apply."""
+
+    def __init__(self, index: int, message: str):
+        super().__init__(index, "CrossShard", message)
+
+
+class ApplyConflict(Conflict):
+    """Server-side apply hit fields owned by other managers.
+
+    ``causes`` is a list of ``(manager, dotted_field)`` pairs the wire
+    facade renders as FieldManagerConflict Status causes — the shape
+    kubectl parses to print its "conflict with ..." hint."""
+
+    def __init__(self, message: str, causes):
+        super().__init__(message)
+        self.causes = list(causes)
+
+
+class Expired(ValueError):
+    """watch resume version fell out of the history ring."""
+
+
+@dataclass(frozen=True)
+class ResourceType:
+    api_version: str
+    kind: str
+    plural: str
+    namespaced: bool = True
+
+
+#: builtin registry (the types the simulator itself needs; CRs register
+#: dynamically like CRDs do)
+BUILTIN_TYPES = [
+    ResourceType("v1", "Node", "nodes", namespaced=False),
+    ResourceType("v1", "Pod", "pods"),
+    ResourceType("v1", "Event", "events"),
+    ResourceType("v1", "Namespace", "namespaces", namespaced=False),
+    ResourceType("v1", "ConfigMap", "configmaps"),
+    ResourceType("v1", "Service", "services"),
+    ResourceType("coordination.k8s.io/v1", "Lease", "leases"),
+    # gang scheduling (kwok_tpu_torch.sched): a PodGroup names an
+    # all-or-nothing admission unit; pods join it via the
+    # kwok.io/pod-group annotation (sched/group.py)
+    ResourceType("scheduling.kwok.io/v1alpha1", "PodGroup", "podgroups"),
+    # workload kinds (kwok_tpu_torch.workloads controllers; the reference gets
+    # these from the real apiserver's builtin registry, so they must be
+    # first-class here too — apps/v1 + batch/v1 + autoscaling/v2 routes
+    # in cluster/k8s_api.py fall out of this registration)
+    ResourceType("apps/v1", "Deployment", "deployments"),
+    ResourceType("apps/v1", "ReplicaSet", "replicasets"),
+    ResourceType("batch/v1", "Job", "jobs"),
+    ResourceType(
+        "autoscaling/v2", "HorizontalPodAutoscaler", "horizontalpodautoscalers"
+    ),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "Stage", "stages", namespaced=False),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "Metric", "metrics", namespaced=False),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "ResourceUsage", "resourceusages"),
+    ResourceType(
+        "kwok.x-k8s.io/v1alpha1", "ClusterResourceUsage", "clusterresourceusages", namespaced=False
+    ),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "Logs", "logs"),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "ClusterLogs", "clusterlogs", namespaced=False),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "Exec", "execs"),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "ClusterExec", "clusterexecs", namespaced=False),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "Attach", "attaches"),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "ClusterAttach", "clusterattaches", namespaced=False),
+    ResourceType("kwok.x-k8s.io/v1alpha1", "PortForward", "portforwards"),
+    ResourceType(
+        "kwok.x-k8s.io/v1alpha1", "ClusterPortForward", "clusterportforwards", namespaced=False
+    ),
+]
+
+Selector = Union[None, str, Dict[str, str]]
+
+
+def _split_requirements(sel: str) -> List[str]:
+    """Split on requirement-separating commas, not the commas inside a
+    set-based value list like ``app in (a,b)``."""
+    parts, cur, depth = [], [], 0
+    for ch in sel:
+        if ch == "(":
+            depth += 1
+        elif ch == ")":
+            depth -= 1
+        if ch == "," and depth == 0:
+            parts.append("".join(cur))
+            cur = []
+        else:
+            cur.append(ch)
+    parts.append("".join(cur))
+    return parts
+
+
+def _parse_selector(sel: Selector) -> List[Tuple[str, str, str]]:
+    """Parse the full k8s selector grammar — 'k=v', 'k!=v', 'k', '!k',
+    'k in (a,b)', 'k notin (a,b)' — into (key, op, value) requirements
+    (set values stay as the raw '(a,b)' text; match splits them)."""
+    if sel is None:
+        return []
+    if isinstance(sel, dict):
+        return [(k, "=", v) for k, v in sel.items()]
+    reqs: List[Tuple[str, str, str]] = []
+    for part in _split_requirements(str(sel)):
+        part = part.strip()
+        if not part:
+            continue
+        low = f" {part} "
+        if " notin " in low:
+            k, v = low.split(" notin ", 1)
+            reqs.append((k.strip(), "notin", v.strip()))
+        elif " in " in low:
+            k, v = low.split(" in ", 1)
+            reqs.append((k.strip(), "in", v.strip()))
+        elif "!=" in part:
+            k, v = part.split("!=", 1)
+            reqs.append((k.strip(), "!=", v.strip()))
+        elif "=" in part:
+            k, v = part.split("==", 1) if "==" in part else part.split("=", 1)
+            reqs.append((k.strip(), "=", v.strip()))
+        elif part.startswith("!"):
+            reqs.append((part[1:].strip(), "notexists", ""))
+        else:
+            reqs.append((part, "exists", ""))
+    return reqs
+
+
+def _set_values(raw: str) -> List[str]:
+    return [v.strip() for v in raw.strip().strip("()").split(",") if v.strip()]
+
+
+def match_label_selector(obj: dict, sel: Selector) -> bool:
+    labels = (obj.get("metadata") or {}).get("labels") or {}
+    for k, op, v in _parse_selector(sel):
+        if op == "=" and labels.get(k) != v:
+            return False
+        if op == "!=" and labels.get(k) == v:
+            return False
+        if op == "exists" and k not in labels:
+            return False
+        if op == "notexists" and k in labels:
+            return False
+        if op == "in" and (k not in labels or labels[k] not in _set_values(v)):
+            return False
+        if op == "notin" and labels.get(k) in _set_values(v):
+            return False
+    return True
+
+
+def selector_to_string(selector: Optional[dict]) -> Optional[str]:
+    """Render a v1 LabelSelector (matchLabels + matchExpressions) to
+    this grammar — the inverse of :func:`_parse_selector`, so workload
+    objects' selectors drive indexed listing directly."""
+    if not selector:
+        return None
+    parts: List[str] = []
+    for k, v in sorted((selector.get("matchLabels") or {}).items()):
+        parts.append(f"{k}={v}")
+    for req in selector.get("matchExpressions") or []:
+        key = req.get("key") or ""
+        op = (req.get("operator") or "").lower()
+        vals = ",".join(req.get("values") or [])
+        if op == "in":
+            parts.append(f"{key} in ({vals})")
+        elif op == "notin":
+            parts.append(f"{key} notin ({vals})")
+        elif op == "exists":
+            parts.append(key)
+        elif op == "doesnotexist":
+            parts.append(f"!{key}")
+    return ",".join(parts) or None
+
+
+# canonical implementation lives beside the patch appliers; re-exported
+# here because store callers historically import it from this module
+from kwok_tpu_torch.utils.patch import copy_json  # noqa: E402,F401
+
+
+def atomic_write_json(path: str, data: Any) -> None:
+    """Write JSON via tmp-then-replace so a crash never leaves a
+    truncated file over a previous good one."""
+    import json as _json
+    import os as _os
+
+    tmp = f"{path}.tmp"
+    with open(tmp, "w", encoding="utf-8") as f:
+        _json.dump(data, f)
+    _os.replace(tmp, path)
+
+
+def _index_value(v: Any) -> Optional[str]:
+    """Stringify a scalar for indexing exactly like the field selector
+    compares (match_field_selector does str(raw)); composites and
+    missing values are unindexed."""
+    if v is None or isinstance(v, (dict, list)):
+        return None
+    return str(v)
+
+
+def _dotted_get(obj: Any, path: str) -> Any:
+    cur = obj
+    for p in path.split("."):
+        if not isinstance(cur, dict):
+            return None
+        cur = cur.get(p)
+    return cur
+
+
+def match_field_selector(obj: dict, sel: Selector) -> bool:
+    for k, op, v in _parse_selector(sel):
+        raw = _dotted_get(obj, k)
+        if op == "exists":
+            if raw is None:
+                return False
+            continue
+        got = "" if raw is None else str(raw)
+        if op == "=" and got != v:
+            return False
+        if op == "!=" and got == v:
+            return False
+    return True
+
+
+class Watcher:
+    """One watch subscription; iterate or poll its events.
+
+    Backpressure: the event buffer has a high-water mark.  A consumer
+    that falls more than ``high_water`` events behind is **evicted** —
+    the buffer is dropped and the watcher stops, the watch-cache-gone
+    answer a real apiserver gives a too-slow watcher.  The consumer
+    resumes at its last delivered resourceVersion (the reflector path;
+    the history ring still covers those events), instead of this buffer
+    holding unbounded history in memory."""
+
+    def __init__(
+        self,
+        store: "ResourceStore",
+        filt: Callable[[dict], bool],
+        trivial: bool = False,
+        status_interest: bool = True,
+        high_water: int = 0,
+    ):
+        self._store = store
+        self._filter = filt
+        #: a trivial filter (no namespace/selectors) lets batch pushes
+        #: skip the per-event filter call on the store thread
+        self._trivial = trivial
+        #: False: this consumer declares it does not need status-only
+        #: batch events (the GC controller's posture — it reads
+        #: ownerReferences/deletionTimestamp, which status writes never
+        #: touch).  Status batches skip it, and it keeps the zero-copy
+        #: commit lane eligible; all other events flow normally.
+        self.status_interest = status_interest
+        #: undelivered-event bound; 0 disables eviction (bare Watcher
+        #: construction in tests and tooling stays unbounded)
+        self.high_water = high_water
+        #: True once backpressure dropped this subscription; consumers
+        #: distinguish "stream ended" (resume) from "stopped by me"
+        self.evicted = False
+        self._events: deque = deque()
+        self._signal = threading.Event()
+        self._stopped = threading.Event()
+
+    def _evict(self) -> None:
+        """Slow-consumer cutoff: drop the backlog, mark gone, stop."""
+        self.evicted = True
+        self._events.clear()
+        self._store._note_eviction(self)
+        self.stop()
+
+    def _push(self, ev: "WatchEvent") -> None:
+        if self._stopped.is_set():
+            return
+        if not self._filter(ev.object):
+            return
+        self._events.append(ev)
+        if self.high_water and len(self._events) > self.high_water:
+            self._evict()
+            return
+        self._signal.set()
+
+    def _push_batch(self, evs: List["WatchEvent"]) -> None:
+        """Deliver many events with one signal (the status-batch drain
+        emits thousands per tick; per-event Event.set wakeups and filter
+        calls were measurable at that rate)."""
+        if self._stopped.is_set() or not evs:
+            return
+        if self._trivial:
+            self._events.extend(evs)
+        else:
+            f = self._filter
+            self._events.extend(ev for ev in evs if f(ev.object))
+        if self.high_water and len(self._events) > self.high_water:
+            self._evict()
+            return
+        self._signal.set()
+
+    def _seed(self, evs: List["WatchEvent"]) -> None:
+        """Preload resume-replay events with no high-water check: the
+        backlog is bounded by the history ring and predates the
+        consumer's first read, so it is not slow-consumer evidence."""
+        self._events.extend(evs)
+        if evs:
+            self._signal.set()
+
+    def drain(self) -> List["WatchEvent"]:
+        """Pop every currently-queued event without blocking."""
+        evs: List[WatchEvent] = []
+        pop = self._events.popleft
+        while True:
+            try:
+                evs.append(pop())
+            except IndexError:
+                return evs
+
+    def next(self, timeout: Optional[float] = 0.5) -> Optional["WatchEvent"]:
+        while True:
+            try:
+                return self._events.popleft()
+            # IndexError IS the empty-queue signal on a lock-free deque
+            # pop — nothing was dropped, the wait below handles it
+            except IndexError:  # kwoklint: disable=swallowed-errors
+                pass
+            if self._stopped.is_set():
+                return None
+            self._signal.clear()
+            try:
+                return self._events.popleft()
+            # same empty-probe idiom as above
+            except IndexError:  # kwoklint: disable=swallowed-errors
+                pass
+            if not self._signal.wait(timeout):
+                return None
+
+    def __iter__(self):
+        while not self._stopped.is_set():
+            ev = self.next(timeout=0.5)
+            if ev is not None:
+                yield ev
+
+    def stop(self) -> None:
+        self._stopped.set()
+        self._signal.set()
+        self._store._drop_watcher(self)
+
+    @property
+    def stopped(self) -> bool:
+        return self._stopped.is_set()
+
+
+@dataclass
+class WatchEvent:
+    type: str  # ADDED | MODIFIED | DELETED
+    object: dict
+    rv: int = 0
+
+
+if _FAST is not None and hasattr(_FAST, "WatchEvent"):
+    # slot-backed C event: same (type, object, rv) surface, but
+    # status_commit can allocate it without a Python __init__ call per
+    # row (every consumer is duck-typed on the three attributes)
+    WatchEvent = _FAST.WatchEvent  # noqa: F811
+
+
+@dataclass
+class StatusLane:
+    """A granted zero-copy commit lane (see ResourceStore.status_lane):
+    the stored-objects dict to splice into, the resourceVersion counter
+    to advance (written back on exit), and the kind's namespacing (the
+    grantee derives store keys with the store's own convention)."""
+
+    objects: Dict[Tuple[str, str], dict]
+    rv: int
+    namespaced: bool
+
+
+class _LaneGrant:
+    """Context manager behind ResourceStore.status_lane: takes the
+    store mutex, yields a StatusLane when the zero-copy conditions hold
+    (else None), and on exit adopts the advanced resourceVersion plus
+    the history-gap marker.  A plain class (not @contextmanager) — the
+    drain requests a grant per chunk, so construction cost matters."""
+
+    __slots__ = ("store", "kind", "exclude", "lane", "st")
+
+    def __init__(self, store: "ResourceStore", kind: str, exclude):
+        self.store = store
+        self.kind = kind
+        self.exclude = exclude
+        self.lane: Optional[StatusLane] = None
+        self.st: Optional[_TypeState] = None
+
+    def __enter__(self) -> Optional[StatusLane]:
+        store = self.store
+        # deliberately manual: on a successful grant the mutex stays
+        # held across the with-body until __exit__ releases it (that IS
+        # the lane — the grantee splices store state under the lock);
+        # the except below covers the only path that must release here
+        store._mut.acquire()  # kwoklint: disable=lock-discipline
+        try:
+            try:
+                st = store._state(self.kind)
+            except NotFound:
+                return None
+            if (
+                self.exclude is None
+                # a WAL cannot observe statuses spliced in place — with
+                # durability on, status batches take the logging lanes
+                or store._wal is not None
+                # shared rv source (sharded store): the lane allocates
+                # rvs locally, which a cluster-wide sequence must see
+                or store._rv_source is not None
+                or any(p.startswith("status.") for p in st.indexes)
+                or any(
+                    w is not self.exclude
+                    and not w.stopped
+                    and w.status_interest
+                    for w in st.watchers
+                )
+                or time.monotonic() < st.lane_cooloff
+            ):
+                return None
+            self.st = st
+            self.lane = StatusLane(st.objects, store._rv, st.rtype.namespaced)
+            return self.lane
+        except BaseException:
+            store._mut.release()
+            raise
+
+    def __exit__(self, *exc) -> None:
+        store = self.store
+        try:
+            lane = self.lane
+            # forward only: a reentrant write during the lane (the
+            # store RLock re-enters from the grantee's thread) may have
+            # advanced the counter past the lane's view — never rewind
+            # below an already-issued resourceVersion
+            if lane is not None and lane.rv > store._rv:
+                n = lane.rv - store._rv
+                store._rv = lane.rv
+                self.st.inplace_rv = lane.rv
+                store._audit.append(
+                    ("patch-status-fused", f"{self.kind}:{n}", None)
+                )
+        finally:
+            store._mut.release()
+
+
+@dataclass
+class _TypeState:
+    rtype: ResourceType
+    history: deque
+    objects: Dict[Tuple[str, str], dict] = field(default_factory=dict)
+    watchers: List[Watcher] = field(default_factory=list)
+    #: field-path -> value -> keys (the informer-cache index analog:
+    #: client-go indexes pods by spec.nodeName the same way)
+    indexes: Dict[str, Dict[str, set]] = field(default_factory=dict)
+    #: lazily maintained sorted key list; invalidated on add/remove so
+    #: paged walks don't re-sort the keyspace per page
+    sorted_keys: Optional[List[Tuple[str, str]]] = None
+    #: gap marker for the zero-copy commit lane: status batches with no
+    #: event consumer mutate stored objects in place and append nothing
+    #: to history; a watch resume at/below this version would replay a
+    #: gapped (and possibly instance-mutated) window, so it gets
+    #: Expired and re-lists — the legal watch-cache-too-small answer
+    inplace_rv: int = 0
+    #: monotonic deadline until which the zero-copy lane must yield to
+    #: the copy lane: set when a watch resume hits the gap marker, so a
+    #: list-then-watch consumer's NEXT attempt finds real history
+    #: instead of being starved by a continuously-advancing marker
+    lane_cooloff: float = 0.0
+
+
+class ResourceStore:
+    """The in-memory cluster state bus."""
+
+    HISTORY = 16384
+
+    #: default undelivered-event bound per watcher (half the history
+    #: ring: an evicted consumer's resume-at-rv replay is then always
+    #: still covered by the ring, so eviction never forces a re-list
+    #: by itself)
+    WATCH_HIGH_WATER = 8192
+
+    def __init__(
+        self,
+        clock: Optional[Clock] = None,
+        namespace_finalizers: bool = False,
+        watch_high_water: Optional[int] = None,
+        rv_source=None,
+        uid_start: int = 0,
+        uid_step: int = 1,
+    ):
+        #: inject NS_FINALIZER on Namespace create (the real apiserver
+        #: injects spec.finalizers the same way) — opt-in by cluster
+        #: composition, because a store WITHOUT a GC controller would
+        #: otherwise strand every deleted namespace in Terminating.
+        #: Injection at create time (not GC-on-sight) closes the window
+        #: where a namespace created and deleted back-to-back is reaped
+        #: before the finalizer lands, orphaning its contents.
+        self.namespace_finalizers = namespace_finalizers
+        self._clock = clock or RealClock()
+        # KWOK_LOCK_SENTINEL=1 swaps in the order-checking wrapper
+        # (utils/locks.py); the WAL deliberately has no lock of its own
+        # — every append/rotate happens under THIS mutex, so the store
+        # lock class is also the WAL's ordering identity
+        self._mut = make_rlock("cluster.store.ResourceStore._mut")
+        self._rv = 0
+        #: external resourceVersion allocator (the sharded-store seam,
+        #: kwok_tpu/cluster/sharding/router.py): when set, every rv is
+        #: drawn from the shared cluster-wide sequence so rvs stay
+        #: globally unique and monotonic across shards.  ``self._rv``
+        #: remains this store's high-water mark (the last rv it
+        #: allocated or replayed); the fastdrain batch allocators and
+        #: the zero-copy status lane assume local allocation and are
+        #: disabled while a source is attached.
+        self._rv_source = rv_source
+        #: test-only injected regression (`--dst-bug shard-void-leak`):
+        #: a failed write's rollback skips the shared-sequence void
+        #: accounting (see ``_unbump``) — the leaked rv is a silent
+        #: union-continuity hole the DST recovery-honesty invariant
+        #: must catch.  Only meaningful with an attached rv source
+        self.unsafe_skip_void_accounting = False
+        #: uid striding (sharded stores): shard ``i`` of ``N`` draws
+        #: uids ``i + k*N`` so uids never collide across shards without
+        #: any shared state (replay only ever observes this shard's own
+        #: uids, so the residue class survives recovery too)
+        self._uid = int(uid_start)
+        self._uid_step = max(1, int(uid_step))
+        #: durability hooks (kwok_tpu_torch.cluster.wal): None keeps every
+        #: mutation path WAL-free (the in-process/bench posture); the
+        #: apiserver daemon attaches a log via attach_wal
+        self._wal = None
+        #: per-thread WAL deferral buffer for the bulk lane (_wal_put)
+        self._wal_local = threading.local()
+        #: chaos crash point (kwok_tpu_torch.chaos): called with a phase name
+        #: at commit boundaries; a hook that raises simulates a process
+        #: dying before/after the commit became durable
+        self._crash_hook: Optional[Callable[[str], None]] = None
+        #: resourceVersions at/below this predate the history ring
+        #: (snapshot boot or state restore): a watch resume from below
+        #: gets Expired and re-lists instead of silently missing events
+        self._history_floor = 0
+        self._types: Dict[str, _TypeState] = {}
+        #: (verb, key, as_user); bounded — at device-drain rates an
+        #: unbounded list is a slow memory leak.  Overflow is counted
+        #: (audit_overflow), not silent: trace-replaying invariant
+        #: checks must be able to tell "clean" from "truncated".
+        self._audit: _AuditRing = _AuditRing(maxlen=1_000_000)
+        # runtime twin of the static guarded-by contract: under
+        # KWOK_RACE_SENTINEL=1 any cross-thread access to the ring
+        # without the store mutex raises RaceWitness
+        guarded(self, "_audit", "cluster.store.ResourceStore._mut")
+        #: per-watcher undelivered-event bound (0 disables eviction)
+        self.watch_high_water = (
+            self.WATCH_HIGH_WATER
+            if watch_high_water is None
+            else int(watch_high_water)
+        )
+        #: slow watchers evicted by backpressure (scraped via /metrics)
+        self.watch_evictions = 0
+        #: which shard of a sharded composition this store is (bounded
+        #: histogram label; 0 = single store).  The sharding layer sets
+        #: it right after construction.
+        self.telemetry_shard = 0
+        #: rv -> monotonic commit instant for recently emitted events
+        #: (bounded ring, evicted FIFO): the watch servers look a
+        #: delivered event's rv up here to observe rv-commit ->
+        #: watcher-delivery lag.  Only populated while a watcher exists
+        #: and telemetry is armed, so watcher-less bulk loads pay one
+        #: branch per emit.  Mutated under the store mutex.
+        self._commit_ring: deque = deque()
+        self._commit_times: Dict[int, float] = {}
+        #: rv -> (span ctx | None, uid, kind, ns, name) for recently
+        #: emitted single-object commits (same ring bound/eviction as
+        #: _commit_times): the causal identity the watch servers
+        #: resolve at delivery — rv→span stitching + journey join key
+        self._commit_meta: Dict[int, tuple] = {}
+        #: per-thread batch marker: inside bulk(), per-event commit
+        #: notes collapse into ONE note of the batch's last rv (same
+        #: cadence as status batches) so the drain-rate event stream
+        #: pays one ring insert per round-trip, not per event
+        self._tel_local = threading.local()
+        #: storage-integrity counters (scraped via /metrics): tolerant
+        #: recoveries run, mid-log corruptions detected, exact missing
+        #: resourceVersions reported, and snapshot-fallback boots
+        #: (kwok_tpu_torch.snapshot.pitr boot_recover bumps the last one)
+        self.wal_recoveries = 0
+        self.wal_corruptions = 0
+        self.wal_missing_rvs = 0
+        self.snapshot_fallbacks = 0
+        for t in BUILTIN_TYPES:
+            self.register_type(t)
+        # the hottest field-selector in the system: the kubelet server
+        # and pod controller list pods by node on every scrape/sync
+        self.register_index("Pod", "spec.nodeName")
+
+    # -------------------------------------------------------------- durability
+
+    def attach_wal(self, wal) -> None:
+        """Attach a :class:`kwok_tpu_torch.cluster.wal.WriteAheadLog`: every
+        subsequent committed mutation is appended (under the store
+        mutex, so records land in commit order) before watchers see its
+        event — except inside :meth:`bulk`, which defers its records
+        into one batched write landed before the *ack* but after the
+        per-op events; a watcher that got ahead of a crash in that
+        window is healed by the future-rv Expired in :meth:`watch`.
+        ``save_file`` compacts the log behind each snapshot.  Attaching
+        disables the zero-copy status lane — spliced-in-place statuses
+        would bypass the log."""
+        with self._mut:
+            self._wal = wal
+
+    def set_crash_hook(self, hook: Optional[Callable[[str], None]]) -> None:
+        """Install a chaos crash point: ``hook(phase)`` runs at
+        ``before-commit`` (nothing mutated yet) and ``after-commit``
+        (object + WAL record committed, ack not yet sent) on the
+        single-object mutation paths.  A hook that raises leaves the
+        store exactly as a crash at that boundary would."""
+        with self._mut:
+            self._crash_hook = hook
+
+    def _commit_point(self, phase: str) -> None:
+        hook = self._crash_hook
+        if hook is not None:
+            hook(phase)
+
+    def _wal_put(self, rec: dict) -> None:
+        """Write one WAL record — or buffer it when this thread is
+        inside a deferring batch (``bulk``), which flushes the whole
+        run with one ``append_many``.  Deferral can interleave this
+        thread's records after another thread's direct ones in the
+        file, so replay orders by rv, not file position."""
+        buf = getattr(self._wal_local, "buf", None)
+        if buf is not None:
+            buf.append(rec)
+        else:
+            self._wal.append(rec)
+
+    def _wal_event(self, etype: str, obj: dict, rv: int) -> None:
+        """Append one committed mutation; caller holds the mutex and
+        has already checked ``self._wal is not None``."""
+        self._wal_put(
+            {"t": "ev", "rv": rv, "u": self._uid, "e": etype, "o": obj}
+        )
+
+    def _check_writable(
+        self, kind: str = "", namespace: Optional[str] = None
+    ) -> None:
+        """Degraded read-only gate: while the attached WAL cannot make
+        writes durable (disk full / quota / poisoned fsync), mutations
+        are refused with :class:`~kwok_tpu_torch.cluster.wal.StorageDegraded`
+        (the apiserver renders 503 + Retry-After) instead of being
+        acked into a log that silently drops them.  kube-system Lease
+        writes stay exempt — they ride the emergency reserve so leader
+        election (and with it bounded failover) survives the pressure
+        window; per-node heartbeat leases (kube-node-lease) are NOT
+        exempt, or a big cluster's heartbeats would drain the reserve.
+        Re-arming is NOT probed here: the gate must stay deterministic
+        under the DST virtual clock (a wall-throttled probe would fire
+        run-dependently), so probing lives behind /readyz polls
+        (:meth:`storage_degraded`), the daemon's background loop, and
+        explicit :meth:`probe_writable` calls.  Caller holds the
+        mutex."""
+        wal = self._wal
+        if wal is None:
+            return
+        deg = wal.degraded
+        if deg is None:
+            return
+        if (
+            kind
+            and kind.lower() in DEGRADED_EXEMPT_KINDS
+            and namespace == DEGRADED_EXEMPT_NAMESPACE
+        ):
+            return
+        raise StorageDegraded(
+            deg.get("reason", "degraded"), deg.get("detail", "")
+        )
+
+    def _wal_event_or_rollback(
+        self, etype: str, obj: dict, rv: int, undo: Callable[[], None]
+    ) -> None:
+        """Append the commit's WAL record; if the log cannot make it
+        durable even through the emergency reserve, run ``undo`` (the
+        in-memory commit has not been observed yet — no event was
+        emitted, the ack was not sent) and surface StorageDegraded.
+        This is what keeps a full disk from acking writes that never
+        existed: the fsyncgate failure class, closed at the commit
+        boundary."""
+        try:
+            self._wal_event(etype, obj, rv)
+        except WalExhausted as exc:
+            undo()
+            self._unbump(rv)
+            raise StorageDegraded(exc.reason, str(exc)) from exc
+
+    def storage_degraded(self) -> Optional[dict]:
+        """The degraded-storage surface for /readyz: None when writes
+        are armed, else ``{"reason", "detail", "for_s"}``.  Polling it
+        doubles as the throttled re-arm probe."""
+        with self._mut:
+            wal = self._wal
+            if wal is None:
+                return None
+            wal.maybe_rearm()
+            deg = wal.degraded
+            if deg is None:
+                return None
+            return {
+                "reason": deg.get("reason", "degraded"),
+                "detail": deg.get("detail", ""),
+                "for_s": max(
+                    0.0, time.monotonic() - deg.get("since", 0.0)
+                ),
+            }
+
+    def probe_writable(self) -> bool:
+        """Unthrottled re-arm attempt under the store mutex (the
+        daemon's background probe and tests call this)."""
+        with self._mut:
+            if self._wal is None:
+                return True
+            return self._wal.try_rearm()
+
+    # ------------------------------------------------------------------ registry
+
+    def register_type(self, rtype: ResourceType) -> None:
+        with self._mut:
+            key = rtype.kind.lower()
+            if key not in self._types:
+                self._types[key] = _TypeState(
+                    rtype=rtype, history=deque(maxlen=self.HISTORY)
+                )
+                if self._wal is not None:
+                    self._wal_put(
+                        {
+                            "t": "type",
+                            "rv": self._rv,
+                            "api_version": rtype.api_version,
+                            "kind": rtype.kind,
+                            "plural": rtype.plural,
+                            "namespaced": rtype.namespaced,
+                        }
+                    )
+            self._types[rtype.plural.lower()] = self._types[key]
+
+    def register_index(self, kind: str, path: str) -> None:
+        """Index a scalar field path for O(matches) field-selector
+        lists (client-go informer indexers do the same for
+        spec.nodeName)."""
+        with self._mut:
+            st = self._state(kind)
+            if path in st.indexes:
+                return
+            idx: Dict[str, set] = {}
+            st.indexes[path] = idx
+            for key, obj in st.objects.items():
+                v = _index_value(_dotted_get(obj, path))
+                if v is not None:
+                    idx.setdefault(v, set()).add(key)
+
+    @staticmethod
+    def _index_update(st: _TypeState, key: Tuple[str, str], old: Optional[dict], new: Optional[dict]) -> None:
+        if old is None or new is None:  # key added or removed
+            st.sorted_keys = None
+        for path, idx in st.indexes.items():
+            ov = _index_value(_dotted_get(old, path) if old is not None else None)
+            nv = _index_value(_dotted_get(new, path) if new is not None else None)
+            if ov == nv:
+                continue
+            if ov is not None:
+                bucket = idx.get(ov)
+                if bucket is not None:
+                    bucket.discard(key)
+                    if not bucket:
+                        del idx[ov]
+            if nv is not None:
+                idx.setdefault(nv, set()).add(key)
+
+    def resource_type(self, kind: str) -> ResourceType:
+        return self._state(kind).rtype
+
+    def kinds(self) -> List[ResourceType]:
+        # iteration would raise if register_type() resized the dict
+        # mid-walk, so unlike _state this discovery path takes the lock
+        with self._mut:
+            seen = []
+            for st in self._types.values():
+                if st.rtype not in seen:
+                    seen.append(st.rtype)
+            return seen
+
+    def _state(self, kind: str) -> _TypeState:
+        # every-request hot path; types register at boot (register_type
+        # holds the mutex) and entries are never replaced or removed,
+        # so a GIL-atomic dict.get sees a fully-built state or misses
+        # kwoklint: disable=guarded-by — boot-registered dict, atomic get
+        st = self._types.get(kind.lower())
+        if st is None:
+            raise NotFound(f"unknown resource type {kind!r}")
+        return st
+
+    # ----------------------------------------------------------------- internals
+
+    def _now_string(self) -> str:
+        t = datetime.datetime.fromtimestamp(self._clock.now(), datetime.timezone.utc)
+        return t.isoformat(timespec="seconds").replace("+00:00", "Z")
+
+    def _next_uid(self) -> str:
+        self._uid += self._uid_step
+        return f"00000000-0000-0000-0000-{self._uid:012d}"
+
+    def _key(self, st: _TypeState, obj: dict) -> Tuple[str, str]:
+        meta = obj.get("metadata") or {}
+        ns = meta.get("namespace") or "" if st.rtype.namespaced else ""
+        return (ns, meta.get("name") or "")
+
+    #: rv->commit-time ring bound: covers several seconds of peak event
+    #: flow; older deliveries just go unobserved (sampling, not error)
+    COMMIT_RING = 8192
+
+    def _note_commit(
+        self,
+        rv: int,
+        st: Optional["_TypeState"] = None,
+        etype: Optional[str] = None,
+        obj: Optional[dict] = None,
+    ) -> None:
+        """Record the commit instant of an emitted rv (caller holds the
+        mutex and has checked a watcher exists).  Observation-only: the
+        watch servers turn this into the delivery-lag histogram.
+
+        With the committing object in hand (single-object mutation
+        paths and txn ops — the bulk drain's per-batch note passes
+        none, keeping the 1M-pod lane at its measured cost) the ring
+        additionally carries the write's causal identity: the
+        committing thread's live span context (rv→span stitching across
+        the watch boundary — the apiserver handler's request span is
+        open right here, continuing the client's W3C trace) plus the
+        object's uid/kind/ns/name, and the commit lands as one
+        ``commit`` hop on the object's journey timeline."""
+        self._commit_times[rv] = time.monotonic()
+        ring = self._commit_ring
+        ring.append(rv)
+        if len(ring) > self.COMMIT_RING:
+            old = ring.popleft()
+            self._commit_times.pop(old, None)
+            self._commit_meta.pop(old, None)
+        if obj is None or st is None:
+            return
+        ctx = _trace.current_context()
+        meta = obj.get("metadata") or {}
+        uid = meta.get("uid") or ""
+        kind = st.rtype.kind
+        ns = meta.get("namespace") or ""
+        name = meta.get("name") or ""
+        if ctx is not None:
+            self._commit_meta[rv] = (ctx, uid, kind, ns, name)
+        elif uid:
+            self._commit_meta[rv] = (None, uid, kind, ns, name)
+        if uid:
+            phase = (obj.get("status") or {}).get("phase")
+            _telemetry.journey().record(
+                uid,
+                kind,
+                ns,
+                name,
+                "commit",
+                rv=rv,
+                etype=etype or "",
+                phase=phase or "",
+                shard=self.telemetry_shard,
+                trace_id=ctx[0] if ctx else "",
+                span_id=ctx[1] if ctx else "",
+            )
+
+    def delivery_lag(self, rv: int) -> Optional[Tuple[float, int]]:
+        """(seconds since rv committed, shard index) for a recently
+        emitted rv, or None when it aged out of the ring (or was never
+        noted — no watcher / telemetry disarmed)."""
+        with self._mut:
+            t = self._commit_times.get(rv)
+        if t is None:
+            return None
+        return (time.monotonic() - t, self.telemetry_shard)
+
+    def commit_context(self, rv: int) -> Optional[Tuple[str, str]]:
+        """The committing span's ``(trace_id, span_id)`` for a recently
+        emitted rv, or None (aged out / untraced write / tracer off).
+        The watch servers resolve this at delivery so consumers can
+        open their reconcile span as a continuation of — or link to —
+        the write that caused the event."""
+        with self._mut:
+            meta = self._commit_meta.get(rv)
+        return meta[0] if meta is not None else None
+
+    def commit_contexts(self, rvs) -> Dict[int, Tuple[str, str]]:
+        """Batch form of :meth:`commit_context`: one mutex hold
+        resolves a whole watch burst's rvs (the delivery loops call
+        this once per flushed burst, not once per event — the store
+        lock is the writers' lock, and tracing must not multiply holds
+        by fan-out).  Only rvs with a context appear in the result."""
+        out: Dict[int, Tuple[str, str]] = {}
+        meta = self._commit_meta
+        with self._mut:
+            for rv in rvs:
+                m = meta.get(rv)
+                if m is not None and m[0] is not None:
+                    out[rv] = m[0]
+        return out
+
+    def commit_meta(self, rv: int):
+        """Full causal-identity slot for an rv: ``(ctx, uid, kind,
+        namespace, name)`` or None — the journey timeline's join key at
+        watch delivery."""
+        with self._mut:
+            return self._commit_meta.get(rv)
+
+    def _emit(self, st: _TypeState, etype: str, obj: dict, rv: int) -> None:
+        # the event shares the stored instance — the same
+        # handed-out-by-reference contract apply_status_batch pins:
+        # every store mutation path is copy-on-write, so the instance
+        # is immutable from here on; watchers/caches must not mutate
+        # it.  (The former per-event deep copy was half the slow-path
+        # drain cost at 1M objects.)
+        ev = WatchEvent(type=etype, object=obj, rv=rv)
+        st.history.append(ev)
+        if st.watchers and _telemetry.enabled():
+            tl = self._tel_local
+            if getattr(tl, "in_batch", False):
+                # deferred: bulk() notes the batch's last rv once
+                tl.batch_rv = rv
+            else:
+                self._note_commit(rv, st=st, etype=etype, obj=obj)
+        for w in list(st.watchers):
+            w._push(ev)
+
+    def _drop_watcher(self, watcher: Watcher) -> None:
+        with self._mut:
+            for st in self._types.values():
+                if watcher in st.watchers:
+                    st.watchers.remove(watcher)
+
+    def _note_eviction(self, watcher: Watcher) -> None:
+        # pushes happen under the mutex, but the re-entrant hold is
+        # cheap and _AuditRing.dropped is a naked read-modify-write —
+        # don't trust every future _push caller to keep the invariant
+        with self._mut:
+            self.watch_evictions += 1
+            self._audit.append(("watch-evicted", "", None))
+
+    def _bump(self, obj: dict) -> int:
+        src = self._rv_source
+        if src is None:
+            self._rv += 1
+        else:
+            self._rv = src.alloc()
+        obj.setdefault("metadata", {})["resourceVersion"] = str(self._rv)
+        return self._rv
+
+    def _unbump(self, rv: int) -> None:
+        """Roll back the rv of a commit whose WAL record could not be
+        made durable (the ``_wal_event_or_rollback`` undo path).  With
+        a shared rv source the number can only be reclaimed while it is
+        still the sequence tip; otherwise another shard already
+        allocated past it and the hole is recorded as a best-effort
+        ``void`` marker so offline fsck and recovery account it as
+        covered, never as a silently lost record."""
+        src = self._rv_source
+        if src is None:
+            self._rv -= 1
+            return
+        self._rv = rv - 1
+        if self.unsafe_skip_void_accounting:
+            # injected regression (`--dst-bug shard-void-leak`): the
+            # rollback "forgets" the shared-sequence accounting — the
+            # rv is neither reclaimed at the tip nor voided, so the
+            # union rv continuity gains a hole that fsck/recovery can
+            # only read as a lost record.  The DST recovery-honesty
+            # invariant's void-accounting probe exists to catch
+            # exactly this
+            return
+        if not src.unalloc(rv) and self._wal is not None:
+            self._wal.note_void(rv)
+
+    # --------------------------------------------------------------------- CRUD
+
+    def create(
+        self,
+        obj: dict,
+        namespace: Optional[str] = None,
+        as_user: Optional[str] = None,
+        copy_result: bool = True,
+    ) -> dict:
+        obj = copy_json(obj)
+        kind = obj.get("kind") or ""
+        with self._mut:
+            st = self._state(kind)
+            self._check_writable(
+                kind,
+                (obj.get("metadata") or {}).get("namespace") or namespace,
+            )
+            meta = obj.setdefault("metadata", {})
+            if st.rtype.namespaced and not meta.get("namespace"):
+                meta["namespace"] = namespace or "default"
+            if not meta.get("name") and meta.get("generateName"):
+                meta["name"] = meta["generateName"] + f"{self._uid + 1:05x}"
+            key = self._key(st, obj)
+            if key in st.objects:
+                raise AlreadyExists(f"{kind} {key} already exists")
+            meta.setdefault("uid", self._next_uid())
+            meta.setdefault("creationTimestamp", self._now_string())
+            if self.namespace_finalizers and kind == "Namespace":
+                fins = meta.setdefault("finalizers", [])
+                if NS_FINALIZER not in fins:
+                    fins.append(NS_FINALIZER)
+            obj.setdefault("apiVersion", st.rtype.api_version)
+            if "spec" in obj:
+                # k8s generation semantics: spec-bearing objects start
+                # at 1; _store_mutation bumps on spec change, and
+                # controllers echo it back as status.observedGeneration
+                meta.setdefault("generation", 1)
+            self._audit.append(("create", f"{kind}:{key}", as_user))
+            self._commit_point("before-commit")
+            rv = self._bump(obj)
+            st.objects[key] = obj
+            self._index_update(st, key, None, obj)
+            if self._wal is not None:
+
+                def undo(st=st, key=key, obj=obj):
+                    del st.objects[key]
+                    self._index_update(st, key, obj, None)
+
+                self._wal_event_or_rollback(ADDED, obj, rv, undo)
+            self._commit_point("after-commit")
+            self._emit(st, ADDED, obj, rv)
+            return obj if not copy_result else copy_json(obj)
+
+    def get(self, kind: str, name: str, namespace: Optional[str] = None) -> dict:
+        with self._mut:
+            st = self._state(kind)
+            ns = (namespace or "default") if st.rtype.namespaced else ""
+            obj = st.objects.get((ns, name))
+            if obj is None:
+                raise NotFound(f"{kind} {ns}/{name} not found")
+            return copy_json(obj)
+
+    @staticmethod
+    def _index_candidates(st: _TypeState, field_selector: Selector):
+        """Sorted key subset from an index when the field selector is a
+        single equality on an indexed path; None → full scan."""
+        if not st.indexes or field_selector is None:
+            return None
+        reqs = _parse_selector(field_selector)
+        if len(reqs) != 1 or reqs[0][1] != "=":
+            return None
+        path, _, value = reqs[0]
+        if value == "":
+            # match_field_selector treats missing fields as "" — unset
+            # values are not indexed, so serve that query by full scan
+            return None
+        idx = st.indexes.get(path)
+        if idx is None:
+            return None
+        return sorted(idx.get(value, ()))
+
+    def list(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: Selector = None,
+        field_selector: Selector = None,
+        copy: bool = True,
+    ) -> Tuple[List[dict], int]:
+        """``copy=False`` hands out the stored instances themselves —
+        the read-only handed-out-by-reference contract (_emit /
+        apply_status_batch); used by the informer reflector, whose
+        consumers never mutate (a deep copy of 1M pods per re-list was
+        most of the e2e setup cost).  Default stays deep-copied.
+
+        Tearing caveat (ADVICE r04 #4): the zero-copy commit lane
+        (status_lane / the in-place branch of apply_status_batch)
+        replaces a stored object's ``status`` and ``resourceVersion``
+        as two separate dict writes.  A ``copy=False`` snapshot read
+        OUTSIDE the store mutex can therefore observe the new status
+        paired with the old resourceVersion (each field is internally
+        consistent; the pair is not).  The lane only activates when no
+        status-interested watcher exists, so the exposed readers are
+        the rare debug/catch-up consumers — use the default deep copy
+        anywhere the status/resourceVersion pairing matters."""
+        out = copy_json if copy else (lambda o: o)
+        with self._mut:
+            st = self._state(kind)
+            cand = self._index_candidates(st, field_selector)
+            if cand is not None:
+                items = []
+                for key in cand:
+                    obj = st.objects.get(key)
+                    if obj is None:
+                        continue
+                    ns = key[0]
+                    if st.rtype.namespaced and namespace is not None and ns != namespace:
+                        continue
+                    if not match_label_selector(obj, label_selector):
+                        continue
+                    items.append(out(obj))
+                return items, self._rv
+            items = []
+            for (ns, _), obj in sorted(st.objects.items()):
+                if st.rtype.namespaced and namespace is not None and ns != namespace:
+                    continue
+                if not match_label_selector(obj, label_selector):
+                    continue
+                if not match_field_selector(obj, field_selector):
+                    continue
+                items.append(out(obj))
+            return items, self._rv
+
+    def list_paged(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: Selector = None,
+        field_selector: Selector = None,
+        page_size: Optional[int] = None,
+    ) -> Tuple[List[dict], int]:
+        """Duck-type twin of ClusterClient.list_paged.  In-process there
+        is no response-size concern, so one consistent snapshot read is
+        strictly better — delegate to :meth:`list`."""
+        return self.list(
+            kind,
+            namespace=namespace,
+            label_selector=label_selector,
+            field_selector=field_selector,
+        )
+
+    def list_page(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        label_selector: Selector = None,
+        field_selector: Selector = None,
+        limit: int = 0,
+        continue_from: Optional[Tuple[str, str]] = None,
+    ) -> Tuple[List[dict], int, Optional[Tuple[str, str]]]:
+        """Paged list (the apiserver's limit/continue semantics; the
+        reference's snapshot pager consumes the same, snapshot/save.go).
+        Returns (items, rv, next_token): next_token is the last key of
+        a full page, None when exhausted.  Filtering applies after
+        pagination-by-key like k8s (a page can be shorter than limit
+        even when more items remain).
+
+        Consistency caveat: pages are independent reads, not one
+        snapshot — mutations between pages can skip or duplicate
+        objects (k8s pins continue tokens to an etcd snapshot; this
+        store does not).  Informers therefore use the single-request
+        :meth:`list`; paging is for bulk export paths."""
+        import bisect
+
+        with self._mut:
+            st = self._state(kind)
+            items: List[dict] = []
+            next_token: Optional[Tuple[str, str]] = None
+            scanned = 0
+            if st.sorted_keys is None:
+                st.sorted_keys = sorted(st.objects)
+            keys = st.sorted_keys
+            start = (
+                bisect.bisect_right(keys, continue_from)
+                if continue_from is not None
+                else 0
+            )
+            for i in range(start, len(keys)):  # no tail copy per page
+                key = keys[i]
+                if limit and scanned >= limit:
+                    break
+                scanned += 1
+                next_token = key
+                ns, _ = key
+                obj = st.objects[key]
+                if st.rtype.namespaced and namespace is not None and ns != namespace:
+                    continue
+                if not match_label_selector(obj, label_selector):
+                    continue
+                if not match_field_selector(obj, field_selector):
+                    continue
+                items.append(copy_json(obj))
+            if not limit or scanned < limit:
+                next_token = None
+            return items, self._rv, next_token
+
+    def update(
+        self,
+        obj: dict,
+        subresource: str = "",
+        as_user: Optional[str] = None,
+    ) -> dict:
+        obj = copy_json(obj)
+        kind = obj.get("kind") or ""
+        with self._mut:
+            st = self._state(kind)
+            key = self._key(st, obj)
+            self._check_writable(kind, key[0] or None)
+            cur = st.objects.get(key)
+            if cur is None:
+                raise NotFound(f"{kind} {key} not found")
+            expect_rv = (obj.get("metadata") or {}).get("resourceVersion")
+            if expect_rv and expect_rv != cur["metadata"].get("resourceVersion"):
+                raise Conflict(
+                    f"resourceVersion mismatch: have {cur['metadata'].get('resourceVersion')}, "
+                    f"got {expect_rv}"
+                )
+            if subresource:
+                new = copy_json(cur)
+                new[subresource] = obj.get(subresource)
+            else:
+                new = obj
+                # immutable fields survive
+                for f in ("uid", "creationTimestamp"):
+                    if cur["metadata"].get(f) is not None:
+                        new.setdefault("metadata", {})[f] = cur["metadata"][f]
+                if cur["metadata"].get("deletionTimestamp") is not None:
+                    new["metadata"].setdefault(
+                        "deletionTimestamp", cur["metadata"]["deletionTimestamp"]
+                    )
+            self._audit.append(("update", f"{kind}:{key}", as_user))
+            return self._store_mutation(st, key, new)
+
+    def patch(
+        self,
+        kind: str,
+        name: str,
+        data: Any,
+        patch_type: str = "merge",
+        namespace: Optional[str] = None,
+        subresource: str = "",
+        as_user: Optional[str] = None,
+        expect: Optional[Dict[str, Any]] = None,
+        copy_result: bool = True,
+    ) -> dict:
+        with self._mut:
+            st = self._state(kind)
+            ns = (namespace or "default") if st.rtype.namespaced else ""
+            self._check_writable(kind, ns or None)
+            key = (ns, name)
+            cur = st.objects.get(key)
+            if cur is None:
+                raise NotFound(f"{kind} {ns}/{name} not found")
+            if expect:
+                # compare-and-swap precondition: dotted paths must hold
+                # their expected values under the same lock the patch
+                # commits under (the batched-lease-renewal guard against
+                # stomping a peer's takeover; the single-object analog
+                # is update()'s resourceVersion conflict)
+                for path, want in expect.items():
+                    have = _dotted_get(cur, path)
+                    if have != want:
+                        raise Conflict(
+                            f"{kind} {ns}/{name}: expected {path}={want!r}, "
+                            f"found {have!r}"
+                        )
+            new = apply_patch(cur, data, patch_type, kind=st.rtype.kind)
+            if subresource:
+                # subresource patches may only change that one field.
+                # Shallow rebase: untouched subtrees are SHARED with the
+                # stored instance (handed-out-by-reference contract —
+                # apply_merge_patch itself already shares unchanged
+                # children); metadata is fresh because _bump writes into
+                # it and history/caches hold the old instance.
+                scoped = dict(cur)
+                scoped["metadata"] = dict(cur["metadata"])
+                scoped[subresource] = new.get(subresource)
+                new = scoped
+            else:
+                # fresh metadata dict before the invariant writes:
+                # apply_merge_patch shares cur's metadata when the patch
+                # does not touch it, and stored instances are handed out
+                # by reference (apply_status_batch contract) — an
+                # in-place _bump would mutate cached/history copies
+                new["metadata"] = dict(new.get("metadata") or {})
+                new["metadata"]["uid"] = cur["metadata"].get("uid")
+                new["metadata"]["creationTimestamp"] = cur["metadata"].get("creationTimestamp")
+                new["metadata"]["name"] = cur["metadata"].get("name")
+                if st.rtype.namespaced:
+                    new["metadata"]["namespace"] = cur["metadata"].get("namespace")
+                if cur["metadata"].get("deletionTimestamp") is not None:
+                    new["metadata"]["deletionTimestamp"] = cur["metadata"]["deletionTimestamp"]
+            self._audit.append(("patch", f"{kind}:{key}", as_user))
+            return self._store_mutation(st, key, new, copy_result=copy_result)
+
+    def apply(
+        self,
+        kind: str,
+        name: str,
+        applied: dict,
+        field_manager: str,
+        force: bool = False,
+        namespace: Optional[str] = None,
+        as_user: Optional[str] = None,
+    ) -> Tuple[dict, bool]:
+        """Server-side apply (``PATCH`` with
+        ``application/apply-patch+yaml``): merge the applied
+        configuration, track per-manager field ownership in
+        ``metadata.managedFields``, remove fields this manager
+        abandoned, and raise :class:`ApplyConflict` when another
+        manager owns a desired field (unless ``force`` transfers
+        ownership) — the contract real clusters get from the
+        kube-apiserver (reference runtime/binary/cluster.go:316-728).
+        Returns ``(object, created)``.
+        """
+        from kwok_tpu_torch.utils import ssa
+
+        applied = copy_json(applied)
+        (applied.get("metadata") or {}).pop("managedFields", None)
+        desired = ssa.field_set(applied)
+        with self._mut:
+            st = self._state(kind)
+            ns = (namespace or "default") if st.rtype.namespaced else ""
+            self._check_writable(kind, ns or None)
+            body_meta = applied.get("metadata") or {}
+            if body_meta.get("name") and body_meta["name"] != name:
+                raise ValueError(
+                    f"the name in the body ({body_meta['name']}) does not "
+                    f"match the name on the request ({name})"
+                )
+            if (
+                st.rtype.namespaced
+                and body_meta.get("namespace")
+                and body_meta["namespace"] != ns
+            ):
+                raise ValueError(
+                    f"the namespace in the body ({body_meta['namespace']}) "
+                    f"does not match the namespace on the request ({ns})"
+                )
+            key = (ns, name)
+            cur = st.objects.get(key)
+            entry = {
+                "manager": field_manager,
+                "operation": "Apply",
+                "apiVersion": applied.get("apiVersion") or st.rtype.api_version,
+                "time": self._now_string(),
+                "fieldsType": "FieldsV1",
+                "fieldsV1": ssa.to_fields_v1(desired),
+            }
+            if cur is None:
+                meta = applied.setdefault("metadata", {})
+                meta.setdefault("name", name)
+                if st.rtype.namespaced:
+                    meta.setdefault("namespace", ns)
+                meta["managedFields"] = [entry]
+                applied.setdefault("kind", st.rtype.kind)
+                # RLock: create() re-enters the store mutex
+                return self.create(applied, namespace=ns, as_user=as_user), True
+
+            mf = list(cur["metadata"].get("managedFields") or [])
+            others = []
+            prior: ssa.FieldSet = set()
+            for e in mf:
+                fs = ssa.from_fields_v1(e.get("fieldsV1") or {})
+                if e.get("manager") == field_manager and e.get("operation") == "Apply":
+                    prior = fs
+                else:
+                    others.append((e, fs))
+            conflicts = ssa.find_conflicts(
+                desired,
+                [(e.get("manager") or "", fs) for e, fs in others],
+                applied,
+                cur,
+            )
+            if conflicts and not force:
+                # dedup: one claimed ancestor can conflict with several
+                # of a manager's descendant paths — kubectl should see
+                # each (manager, claimed-path) cause once
+                causes = sorted(
+                    {(m, ssa.dotted(ours)) for m, _theirs, ours in conflicts}
+                )
+                managers = sorted({m for m, _ in causes})
+                raise ApplyConflict(
+                    f"Apply failed with {len(causes)} conflict"
+                    f"{'s' if len(causes) != 1 else ''}: "
+                    + "; ".join(
+                        f'conflict with "{m}": {f}' for m, f in causes
+                    )
+                    + f" (managers {', '.join(managers)}; retry with force to take ownership)",
+                    causes,
+                )
+
+            new = copy_json(cur)
+            for path in prior - desired:
+                # the manager abandoned these fields and nobody else
+                # owns them: apply removes them
+                if not any(path in fs for _, fs in others):
+                    ssa.remove_path(new, path)
+            new = apply_patch(new, applied, "merge", kind=st.rtype.kind)
+
+            new_mf = []
+            # dispossession strips the OTHER manager's own entry —
+            # which may be an ancestor of what we claimed
+            taken = (
+                {(m, theirs) for m, theirs, _ours in conflicts}
+                if force
+                else set()
+            )
+            for e, fs in others:
+                m = e.get("manager") or ""
+                keep = {p for p in fs if (m, p) not in taken}
+                if keep != fs:
+                    if not keep:
+                        continue  # fully dispossessed by --force
+                    e = dict(e)
+                    e["fieldsV1"] = ssa.to_fields_v1(keep)
+                new_mf.append(e)
+            new_mf.append(entry)
+
+            # metadata invariants, exactly like patch()
+            new["metadata"] = dict(new.get("metadata") or {})
+            new["metadata"]["managedFields"] = new_mf
+            new["metadata"]["uid"] = cur["metadata"].get("uid")
+            new["metadata"]["creationTimestamp"] = cur["metadata"].get(
+                "creationTimestamp"
+            )
+            new["metadata"]["name"] = cur["metadata"].get("name")
+            if st.rtype.namespaced:
+                new["metadata"]["namespace"] = cur["metadata"].get("namespace")
+            if cur["metadata"].get("deletionTimestamp") is not None:
+                new["metadata"]["deletionTimestamp"] = cur["metadata"][
+                    "deletionTimestamp"
+                ]
+            self._audit.append(("apply", f"{kind}:{key}", as_user))
+            return self._store_mutation(st, key, new), False
+
+    def _store_mutation(
+        self,
+        st: _TypeState,
+        key: Tuple[str, str],
+        new: dict,
+        copy_result: bool = True,
+    ) -> dict:
+        """Commit an updated object; reap it if it is terminating with no
+        finalizers left (the apiserver's finalizer GC).
+
+        ``copy_result=False`` returns the stored instance itself (the
+        handed-out-by-reference contract: treat as immutable) — the
+        device drain's bulk path adopts results into its row mirrors,
+        where the instance is exactly what the fused commit wants and
+        a 1M-row create wave spends most of its time deep-copying."""
+        meta = new.setdefault("metadata", {})
+        old = st.objects.get(key)
+        if old is not None:
+            # k8s generation semantics: a spec change bumps
+            # metadata.generation; anything else carries it forward
+            # (status-only commits share the spec instance — the
+            # identity probe keeps the hot status path free of deep
+            # compares)
+            old_gen = (old.get("metadata") or {}).get("generation")
+            old_spec, new_spec = old.get("spec"), new.get("spec")
+            if new_spec is not old_spec and new_spec != old_spec:
+                meta["generation"] = int(old_gen or 0) + 1
+            elif old_gen is not None:
+                meta["generation"] = old_gen
+        self._commit_point("before-commit")
+        if meta.get("deletionTimestamp") is not None and not meta.get("finalizers"):
+            rv = self._bump(new)
+            del st.objects[key]
+            self._index_update(st, key, old, None)
+            if self._wal is not None:
+
+                def undo_reap(st=st, key=key, old=old):
+                    st.objects[key] = old
+                    self._index_update(st, key, None, old)
+
+                self._wal_event_or_rollback(DELETED, new, rv, undo_reap)
+            self._commit_point("after-commit")
+            self._emit(st, DELETED, new, rv)
+            return new if not copy_result else copy_json(new)
+        rv = self._bump(new)
+        st.objects[key] = new
+        self._index_update(st, key, old, new)
+        if self._wal is not None:
+
+            def undo_mod(st=st, key=key, old=old, new=new):
+                if old is None:
+                    del st.objects[key]
+                    self._index_update(st, key, new, None)
+                else:
+                    st.objects[key] = old
+                    self._index_update(st, key, new, old)
+
+            self._wal_event_or_rollback(MODIFIED, new, rv, undo_mod)
+        self._commit_point("after-commit")
+        self._emit(st, MODIFIED, new, rv)
+        return new if not copy_result else copy_json(new)
+
+    def delete(
+        self,
+        kind: str,
+        name: str,
+        namespace: Optional[str] = None,
+        as_user: Optional[str] = None,
+        copy_result: bool = True,
+    ) -> Optional[dict]:
+        """Graceful delete: objects holding finalizers get a
+        deletionTimestamp and live on until the finalizers clear."""
+        with self._mut:
+            st = self._state(kind)
+            ns = (namespace or "default") if st.rtype.namespaced else ""
+            self._check_writable(kind, ns or None)
+            key = (ns, name)
+            orig = st.objects.get(key)
+            if orig is None:
+                raise NotFound(f"{kind} {ns}/{name} not found")
+            self._audit.append(("delete", f"{kind}:{key}", as_user))
+            # copy-on-write: stored instances may be shared with watch
+            # histories and informer caches (apply_status_batch hands
+            # them out by reference) — never mutate one in place
+            cur = dict(orig)
+            meta = cur["metadata"] = dict(cur.get("metadata") or {})
+            self._commit_point("before-commit")
+
+            def undo(st=st, key=key, orig=orig, cur=cur):
+                st.objects[key] = orig
+                self._index_update(st, key, cur, orig)
+
+            if meta.get("finalizers"):
+                if meta.get("deletionTimestamp") is None:
+                    meta["deletionTimestamp"] = self._now_string()
+                    rv = self._bump(cur)
+                    st.objects[key] = cur
+                    if self._wal is not None:
+                        self._wal_event_or_rollback(MODIFIED, cur, rv, undo)
+                    self._commit_point("after-commit")
+                    self._emit(st, MODIFIED, cur, rv)
+                return cur if not copy_result else copy_json(cur)
+            rv = self._bump(cur)
+            del st.objects[key]
+            self._index_update(st, key, cur, None)
+            if self._wal is not None:
+
+                def undo_del(st=st, key=key, orig=orig, cur=cur):
+                    st.objects[key] = orig
+                    self._index_update(st, key, None, orig)
+
+                self._wal_event_or_rollback(DELETED, cur, rv, undo_del)
+            self._commit_point("after-commit")
+            self._emit(st, DELETED, cur, rv)
+            return None
+
+    # -------------------------------------------------------------------- watch
+
+    def watch(
+        self,
+        kind: str,
+        namespace: Optional[str] = None,
+        since_rv: Optional[int] = None,
+        label_selector: Selector = None,
+        field_selector: Selector = None,
+        status_interest: bool = True,
+    ) -> Watcher:
+        with self._mut:
+            st = self._state(kind)
+
+            def filt(obj: dict, _ns=namespace, _st=st) -> bool:
+                if _st.rtype.namespaced and _ns is not None:
+                    if (obj.get("metadata") or {}).get("namespace") != _ns:
+                        return False
+                return match_label_selector(obj, label_selector) and match_field_selector(
+                    obj, field_selector
+                )
+
+            w = Watcher(
+                self,
+                filt,
+                trivial=(
+                    (namespace is None or not st.rtype.namespaced)
+                    and label_selector is None
+                    and field_selector is None
+                ),
+                status_interest=status_interest,
+                high_water=self.watch_high_water,
+            )
+            # with a shared rv source (sharded store) the cluster-wide
+            # sequence may be ahead of this shard's own high-water mark
+            # — a resume from another shard's rv is legitimate, so the
+            # future-rv check compares against the shared horizon
+            src = self._rv_source
+            horizon = (
+                self._rv if src is None else max(self._rv, src.current())
+            )
+            if since_rv is not None and since_rv > horizon:
+                # a resume from the future means the store lost state
+                # this consumer already observed (crash between a bulk
+                # batch's event emission and its WAL append is the one
+                # such window) — Expired forces the re-list that heals
+                # the divergence instead of silently diverging forever
+                raise Expired(
+                    f"resourceVersion {since_rv} is ahead of the store "
+                    f"({horizon}); state rolled back across a restart"
+                )
+            if since_rv is not None and since_rv < self._rv:
+                if since_rv < self._history_floor:
+                    # the ring predates this version entirely (snapshot
+                    # boot / state restore): same answer as a too-small
+                    # watch cache — Expired, consumer re-lists
+                    raise Expired(
+                        f"resourceVersion {since_rv} predates the store's "
+                        f"history floor {self._history_floor}"
+                    )
+                if since_rv < st.inplace_rv and status_interest:
+                    # the zero-copy lane left a gap below this version.
+                    # Yield the lane for a while so this consumer's
+                    # list-then-watch retry finds real history instead
+                    # of racing a continuously-advancing marker.
+                    st.lane_cooloff = time.monotonic() + 30.0
+                    raise Expired(
+                        f"resourceVersion {since_rv} is too old "
+                        "(compacted by the in-place commit lane)"
+                    )
+                hist = list(st.history)
+                if hist and hist[0].rv > since_rv + 1 and len(hist) == st.history.maxlen:
+                    raise Expired(f"resourceVersion {since_rv} is too old")
+                # resume replay bypasses the high-water check (_seed):
+                # the backlog is ring-bounded and predates the
+                # consumer's first read — only LIVE lag evicts
+                w._seed(
+                    [ev for ev in hist if ev.rv > since_rv and filt(ev.object)]
+                )
+            st.watchers.append(w)
+            return w
+
+    # --------------------------------------------------------------------- bulk
+
+    def apply_status_batch(
+        self,
+        kind: str,
+        items: List[Tuple[Optional[str], str, dict]],
+        exclude: Optional[Watcher] = None,
+    ) -> List[Optional[Tuple[int, dict]]]:
+        """Device-drain fast path: replace the ``status`` of many
+        objects in one locked pass (the columnar op batch of VERDICT r02
+        next-#1 — no per-op dicts, no JSON deep copies).
+
+        ``items``: ``[(namespace, name, new_status)]``.  Ownership
+        contract (in-process only): status dicts are handed over to the
+        store, and the returned/emitted objects are the stored instances
+        — callers and watchers must treat them as immutable.  Every
+        other store path already builds fresh objects on mutation, so
+        sharing is safe.  Returns per item ``(resourceVersion, object)``
+        or None when the key does not exist (NotFound).
+
+        Semantics match ``patch(subresource="status", type=merge)`` for
+        a patch that replaces status wholesale: metadata invariants
+        cannot change, and the finalizer-reap check cannot trigger (a
+        status write never clears finalizers).
+
+        ``exclude``: a watcher to skip during event delivery — the
+        caller IS that watcher's consumer and adopts the returned
+        objects directly, so delivering its own echoes would only be
+        store-then-filter work (VERDICT r03 next-#1).  The events still
+        land in the history ring: an excluded watcher that dies and
+        resumes via ``watch(since_rv=...)`` replays them (and its
+        consumer's staleness filter drops them, as before)."""
+        with self._mut:
+            st = self._state(kind)
+            self._check_writable(kind)
+            namespaced = st.rtype.namespaced
+            status_indexed = any(p.startswith("status.") for p in st.indexes)
+            if (
+                _FAST is not None
+                and not status_indexed
+                and self._wal is None  # in-place splices bypass the log
+                # the C committers allocate rvs locally from a start
+                # value; a shared rv source (sharded store) must see
+                # every allocation, so both fast lanes stand down
+                and self._rv_source is None
+                and exclude is not None
+                and all(
+                    w is exclude or w.stopped or not w.status_interest
+                    for w in st.watchers
+                )
+                and time.monotonic() >= st.lane_cooloff
+            ):
+                # zero-copy lane: the only live watcher is the caller's
+                # own (excluded) one, so these events have no consumer —
+                # mutate stored objects in place, record the gap marker
+                # instead of history (see _TypeState.inplace_rv)
+                before_rv = self._rv
+                out, self._rv = _FAST.status_commit_inplace(
+                    st.objects, items, self._rv, namespaced
+                )
+                if self._rv != before_rv:
+                    # only a batch that actually mutated something
+                    # leaves a history gap — an all-missing batch must
+                    # not force consumers into spurious re-lists
+                    st.inplace_rv = self._rv
+                    self._audit.append(
+                        ("patch-status-batch", f"{kind}:{len(items)}", None)
+                    )
+                return out
+            if (
+                _FAST is not None
+                and not status_indexed
+                and self._rv_source is None
+            ):
+                out, evs, self._rv = _FAST.status_commit(
+                    st.objects, items, self._rv, namespaced, WatchEvent
+                )
+                if evs:
+                    st.history.extend(evs)
+                    self._audit.append(
+                        ("patch-status-batch", f"{kind}:{len(evs)}", None)
+                    )
+                    if self._wal is not None:
+                        self._wal_status_batch(kind, items, out)
+                    if _telemetry.enabled() and any(
+                        w is not exclude and w.status_interest
+                        for w in st.watchers
+                    ):
+                        # one commit-time note per batch (not per event:
+                        # a tick commits thousands) — delivery lag is
+                        # then measured against the batch's last rv
+                        self._note_commit(evs[-1].rv)
+                    for w in list(st.watchers):
+                        if w is not exclude and w.status_interest:
+                            w._push_batch(evs)
+                return out
+            out: List[Optional[Tuple[int, dict]]] = []
+            evs: List[WatchEvent] = []
+            history = st.history
+            objects = st.objects
+            src = self._rv_source
+            for ns, name, status in items:
+                key = ((ns or "default") if namespaced else "", name)
+                cur = objects.get(key)
+                if cur is None:
+                    out.append(None)
+                    continue
+                new = dict(cur)
+                new["status"] = status
+                nm = dict(cur["metadata"])
+                if src is None:
+                    self._rv += 1
+                else:
+                    self._rv = src.alloc()
+                rv = self._rv
+                nm["resourceVersion"] = str(rv)
+                new["metadata"] = nm
+                objects[key] = new
+                if status_indexed:
+                    self._index_update(st, key, cur, new)
+                ev = WatchEvent(type=MODIFIED, object=new, rv=rv)
+                history.append(ev)
+                evs.append(ev)
+                out.append((rv, new))
+            if evs:
+                self._audit.append(
+                    ("patch-status-batch", f"{kind}:{len(evs)}", None)
+                )
+                if self._wal is not None:
+                    self._wal_status_batch(kind, items, out)
+                if _telemetry.enabled() and any(
+                    w is not exclude and w.status_interest
+                    for w in st.watchers
+                ):
+                    # same per-batch commit note as the fast lane above
+                    self._note_commit(evs[-1].rv)
+                for w in list(st.watchers):
+                    if w is not exclude and w.status_interest:
+                        w._push_batch(evs)
+            return out
+
+    def _wal_status_batch(self, kind: str, items, out) -> None:
+        """One WAL record for a whole status batch; caller holds the
+        mutex.  ``items``/``out`` align per apply_status_batch.
+
+        A :class:`WalExhausted` here (reserve spent mid-batch) surfaces
+        as StorageDegraded: the batch is committed in memory but its
+        ack is refused, the same contract as bulk's deferred flush."""
+        pairs = [
+            [ns, name, status, res[0]]
+            for (ns, name, status), res in zip(items, out)
+            if res is not None
+        ]
+        if pairs:
+            try:
+                self._wal_put(
+                    {"t": "status", "rv": pairs[-1][3], "k": kind, "i": pairs}
+                )
+            except WalExhausted as exc:
+                raise StorageDegraded(exc.reason, str(exc)) from exc
+
+    def status_lane(self, kind: str, exclude: Optional[Watcher]):
+        """Grant the caller the zero-copy status-commit lane for one
+        chunk: a context manager yielding a :class:`StatusLane` (the
+        stored-objects dict plus the resourceVersion counter) with the
+        store mutex held, or ``None`` when the lane conditions do not
+        hold (a live watcher with status interest, a status index, or
+        the post-Expired cooloff).
+
+        This powers the fused native drain
+        (``kwok_fastdrain.fused_group`` via
+        ``DeviceStagePlayer._drain_tick``): build + commit + confirm in
+        one pass over each row.  The contract matches the in-place
+        branch of :meth:`apply_status_batch` — stored objects are
+        mutated in place, no events are delivered, and the history gap
+        marker (``inplace_rv``) expires any watcher resuming from an
+        older resourceVersion.  The grantee must only splice ``status``
+        and ``metadata.resourceVersion`` (from ``lane.rv``, one bump
+        per object) on instances it verified are the stored ones."""
+        return _LaneGrant(self, kind, exclude)
+
+    def bulk(
+        self,
+        ops: List[dict],
+        copy_results: bool = True,
+        as_user: Optional[str] = None,
+    ) -> List[dict]:
+        """Apply many mutations in one call — the device backend's
+        dirty-row drain (SURVEY §2.9: only dirty rows cross the
+        device↔apiserver boundary; batching amortizes the per-op HTTP
+        round-trip when the store is remote).  Each op:
+
+        ``{"verb": "patch"|"delete"|"create", "kind", "name",
+           "namespace"?, "data"?, "patch_type"?, "subresource"?,
+           "as_user"?, "expect"?}`` — ``expect`` maps dotted paths to
+        required current values (CAS precondition; mismatch → Conflict)
+
+        Per-op failures do not abort the batch; results align with ops:
+        ``{"status": "ok", "object": ...}`` (object None for a
+        completed delete) or ``{"status": "error", "reason", "error"}``.
+
+        ``copy_results=False`` hands back stored instances (immutable
+        by contract) — the in-process drain adopts them into its row
+        mirrors, and deep-copying a 1M-row create wave was most of its
+        cost.  The HTTP facade keeps the default (it serializes results
+        outside the store lock).
+
+        Besides the per-op entries, one ``("bulk", "<kinds>:<n>",
+        as_user)`` summary lands in the audit log per call — the
+        round-trip marker the workload controllers' O(round-trips) ≪
+        O(replicas) contract is asserted against (tests count these,
+        not the per-op entries).
+        """
+        if ops:
+            # malformed (non-dict) ops still get their per-op Invalid
+            # result below — the summary line must not raise first
+            dict_ops = [op for op in ops if isinstance(op, dict)]
+            kinds = sorted(
+                {
+                    str(
+                        op.get("kind")
+                        or (op.get("data") or {}).get("kind")
+                        or ""
+                    )
+                    for op in dict_ops
+                }
+            )
+            with self._mut:
+                # the ring's overflow counter is a read-modify-write —
+                # append only under the mutex like every per-op entry
+                self._audit.append(
+                    (
+                        "bulk",
+                        f"{'+'.join(kinds)}:{len(ops)}",
+                        as_user
+                        or (dict_ops[0].get("as_user") if dict_ops else None),
+                    )
+                )
+        results: List[dict] = []
+        # defer this thread's WAL records and land the whole batch with
+        # one write+flush — per-op flushes were the WAL's only
+        # measurable cost at device-drain rates
+        # kwoklint: disable=guarded-by — attach-once WAL slot, GIL-atomic identity read
+        defer_wal = self._wal is not None
+        if defer_wal:
+            # degraded read-only gate up front: refusing the whole batch
+            # before any op commits keeps memory and log in lockstep
+            # (the per-op gates still cover windows opening mid-call)
+            with self._mut:
+                self._check_writable()
+            self._wal_local.buf = []
+        tl = self._tel_local
+        tl.in_batch = True
+        tl.batch_rv = None
+        try:
+            self._bulk_ops(ops, results, copy_results)
+        finally:
+            tl.in_batch = False
+            if tl.batch_rv is not None:
+                # one delivery-lag commit note per batch (the status-
+                # batch cadence): the last rv stands in for the burst
+                with self._mut:
+                    self._note_commit(tl.batch_rv)
+                tl.batch_rv = None
+            if defer_wal:
+                buf = self._wal_local.buf
+                self._wal_local.buf = None
+                # every WAL file op happens under the store mutex —
+                # append_many must not race save_file's compact (which
+                # closes and reopens the log file)
+                with self._mut:
+                    if self._wal is not None:
+                        try:
+                            self._wal.append_many(buf)
+                        except WalExhausted as exc:
+                            # the batch is committed in memory but could
+                            # not be made durable even via the reserve:
+                            # refuse the ACK (503).  A crash before space
+                            # returns rolls these ops back, and watchers
+                            # that ran ahead heal through the future-rv
+                            # Expired re-list (see watch()).
+                            raise StorageDegraded(
+                                exc.reason, str(exc)
+                            ) from exc
+        return results
+
+    def _bulk_ops(self, ops, results, copy_results) -> None:
+        for op in ops:
+            try:
+                verb = op.get("verb")
+                if verb == "patch":
+                    out = self.patch(
+                        op["kind"],
+                        op["name"],
+                        op.get("data"),
+                        patch_type=op.get("patch_type", "merge"),
+                        namespace=op.get("namespace"),
+                        subresource=op.get("subresource", ""),
+                        as_user=op.get("as_user"),
+                        expect=op.get("expect"),
+                        copy_result=copy_results,
+                    )
+                elif verb == "delete":
+                    out = self.delete(
+                        op["kind"],
+                        op["name"],
+                        namespace=op.get("namespace"),
+                        as_user=op.get("as_user"),
+                        copy_result=copy_results,
+                    )
+                elif verb == "create":
+                    out = self.create(
+                        op["data"],
+                        namespace=op.get("namespace"),
+                        as_user=op.get("as_user"),
+                        copy_result=copy_results,
+                    )
+                else:
+                    raise ValueError(f"unknown bulk verb {verb!r}")
+                results.append({"status": "ok", "object": out})
+            except NotFound as exc:
+                results.append(
+                    {"status": "error", "reason": "NotFound", "error": str(exc)}
+                )
+            except Conflict as exc:
+                results.append(
+                    {"status": "error", "reason": "Conflict", "error": str(exc)}
+                )
+            except StorageDegraded as exc:
+                # a pressure window opened mid-batch: the remaining ops
+                # get the same machine-readable rejection a fresh
+                # request would
+                results.append(
+                    {
+                        "status": "error",
+                        "reason": "StorageDegraded",
+                        "error": str(exc),
+                    }
+                )
+            except Exception as exc:  # noqa: BLE001 — per-op isolation
+                results.append(
+                    {"status": "error", "reason": "Invalid", "error": str(exc)}
+                )
+
+    # --------------------------------------------------------------- transact
+
+    #: verbs :meth:`transact` accepts (bulk's vocabulary minus apply —
+    #: server-side apply's conflict surface cannot be pre-validated
+    #: without running the merge, so it stays on the per-op lane)
+    _TXN_VERBS = ("create", "patch", "delete")
+
+    def transact(
+        self,
+        ops: List[dict],
+        as_user: Optional[str] = None,
+        copy_results: bool = True,
+    ) -> List[Optional[dict]]:
+        """All-or-nothing sibling of :meth:`bulk` — the gang-scheduling
+        commit lane (``kwok_tpu/sched/engine.py`` binds a whole
+        PodGroup through here so no partial gang is ever observable).
+
+        Every op is validated under ONE mutex hold before anything
+        commits: the first op that cannot apply aborts the whole batch
+        with :class:`TransactionAborted` — nothing mutated, nothing
+        logged, no events emitted.  On success all ops commit under the
+        same hold and land in the WAL as a single ``txn`` record (one
+        CRC-framed line), so crash replay is also all-or-nothing: a
+        torn or corrupted txn drops WHOLE, never as a prefix
+        (``kwok_tpu/cluster/wal.py:32`` record shapes).  A crash
+        *between* the in-memory commit and the txn append loses the
+        whole batch together — the caller never got the ack, exactly
+        like :meth:`bulk`'s deferred-append window.
+
+        Op shape matches :meth:`bulk` (``verb``/``kind``/``name``/
+        ``namespace``/``data``/``patch_type``/``subresource``/
+        ``expect``/``as_user``); ``expect`` CAS preconditions are part
+        of validation.  ``create`` ops must carry a concrete name
+        (``generateName`` alone would make validation a guess).
+        Returns one result per op: the committed object, or None for a
+        completed delete.
+        """
+        with self._mut:
+            self._check_writable()
+            # ---------------- phase 1: validate (mutates nothing) ----
+            # overlay: (canonical kind, key) -> planned object (None =
+            # deleted by an earlier op in this txn), so intra-batch
+            # sequences validate against the state they will see;
+            # keyed on st.rtype.kind, NOT the caller's spelling — ops
+            # mixing aliases ("Pod"/"pods") must hit one overlay slot
+            # or phase 2 would fail mid-commit on state phase 1 never saw
+            overlay: Dict[Tuple[str, Tuple[str, str]], Optional[dict]] = {}
+
+            def abort(i: int, reason: str, msg: str) -> None:
+                raise TransactionAborted(i, reason, f"txn op {i}: {msg}")
+
+            # phase 2 must commit exactly what phase 1 validated, so
+            # any op normalization below replaces entries in a local
+            # copy of the list (never the caller's ops)
+            ops = list(ops)
+            for i, op in enumerate(ops):
+                if not isinstance(op, dict):
+                    abort(i, "Invalid", "op is not an object")
+                verb = op.get("verb")
+                if verb not in self._TXN_VERBS:
+                    abort(i, "Invalid", f"unknown txn verb {verb!r}")
+                data = op.get("data")
+                kind = op.get("kind") or (
+                    (data or {}).get("kind") if isinstance(data, dict) else ""
+                )
+                try:
+                    st = self._state(kind or "")
+                except NotFound as exc:
+                    abort(i, "NotFound", str(exc))
+                self._check_writable(
+                    kind,
+                    (
+                        ((data or {}).get("metadata") or {}).get("namespace")
+                        if isinstance(data, dict)
+                        else None
+                    )
+                    or op.get("namespace"),
+                )
+                if verb == "create":
+                    if not isinstance(data, dict):
+                        abort(i, "Invalid", "create needs a data object")
+                    # phase 2's create() resolves the type from data
+                    # alone: normalize the op-level kind into it, and
+                    # refuse a data kind that resolves to a DIFFERENT
+                    # type than the op kind phase 1 validated against —
+                    # either divergence would raise mid-commit and
+                    # strand a partially-applied txn
+                    dkind = data.get("kind")
+                    if dkind:
+                        try:
+                            if self._state(dkind) is not st:
+                                abort(
+                                    i,
+                                    "Invalid",
+                                    f"op kind {kind!r} does not match "
+                                    f"data kind {dkind!r}",
+                                )
+                        except NotFound as exc:
+                            abort(i, "NotFound", str(exc))
+                    else:
+                        data = dict(data)
+                        data["kind"] = st.rtype.kind
+                        op = dict(op)
+                        op["data"] = data
+                        ops[i] = op
+                    meta = data.get("metadata") or {}
+                    name = meta.get("name") or ""
+                    if not name:
+                        abort(
+                            i,
+                            "Invalid",
+                            "create in a txn requires metadata.name "
+                            "(generateName resolves at commit time)",
+                        )
+                    ns = (
+                        (meta.get("namespace") or op.get("namespace") or "default")
+                        if st.rtype.namespaced
+                        else ""
+                    )
+                    key = (ns, name)
+                    okey = (st.rtype.kind, key)
+                    exists = (
+                        overlay[okey] is not None
+                        if okey in overlay
+                        else key in st.objects
+                    )
+                    if exists:
+                        abort(i, "AlreadyExists", f"{kind} {key} already exists")
+                    overlay[okey] = data
+                else:
+                    name = op.get("name") or ""
+                    ns = (
+                        (op.get("namespace") or "default")
+                        if st.rtype.namespaced
+                        else ""
+                    )
+                    key = (ns, name)
+                    okey = (st.rtype.kind, key)
+                    cur = (
+                        overlay[okey]
+                        if okey in overlay
+                        else st.objects.get(key)
+                    )
+                    if cur is None:
+                        abort(i, "NotFound", f"{kind} {ns}/{name} not found")
+                    if verb == "patch":
+                        for path, want in (op.get("expect") or {}).items():
+                            have = _dotted_get(cur, path)
+                            if have != want:
+                                abort(
+                                    i,
+                                    "Conflict",
+                                    f"{kind} {ns}/{name}: expected "
+                                    f"{path}={want!r}, found {have!r}",
+                                )
+                        try:
+                            planned = apply_patch(
+                                cur,
+                                op.get("data"),
+                                op.get("patch_type", "merge"),
+                                kind=st.rtype.kind,
+                            )
+                        except (ValueError, TypeError, KeyError) as exc:
+                            abort(i, "Invalid", f"patch does not apply: {exc}")
+                        # mirror patch()'s commit shape exactly (see
+                        # patch() above): a subresource patch may only
+                        # change that one subtree, and a root patch
+                        # cannot move identity metadata — an overlay
+                        # that drifts from what phase 2 produces lets
+                        # a later op validate a state that never
+                        # commits
+                        sub = op.get("subresource") or ""
+                        cmeta = cur.get("metadata") or {}
+                        if sub:
+                            scoped = dict(cur)
+                            scoped["metadata"] = dict(cmeta)
+                            scoped[sub] = planned.get(sub)
+                            planned = scoped
+                        else:
+                            planned["metadata"] = dict(
+                                planned.get("metadata") or {}
+                            )
+                            planned["metadata"]["uid"] = cmeta.get("uid")
+                            planned["metadata"]["creationTimestamp"] = (
+                                cmeta.get("creationTimestamp")
+                            )
+                            planned["metadata"]["name"] = cmeta.get("name")
+                            if st.rtype.namespaced:
+                                planned["metadata"]["namespace"] = (
+                                    cmeta.get("namespace")
+                                )
+                            if cmeta.get("deletionTimestamp") is not None:
+                                planned["metadata"]["deletionTimestamp"] = (
+                                    cmeta["deletionTimestamp"]
+                                )
+                        overlay[okey] = planned
+                    else:  # delete — mirror delete()'s graceful
+                        # semantics: a finalizer-bearing object
+                        # survives with a deletionTimestamp, so later
+                        # ops in this txn must see it as still present
+                        # (modeling it as gone would let a create of
+                        # the same name pass validation and then raise
+                        # AlreadyExists mid-commit, breaking the
+                        # nothing-mutated abort contract)
+                        if (cur.get("metadata") or {}).get("finalizers"):
+                            planned = dict(cur)
+                            pmeta = dict(planned.get("metadata") or {})
+                            if pmeta.get("deletionTimestamp") is None:
+                                pmeta["deletionTimestamp"] = "(pending)"
+                            planned["metadata"] = pmeta
+                            overlay[okey] = planned
+                        else:
+                            overlay[okey] = None
+
+            # ---------------- phase 2: commit (validated, same hold) --
+            dict_ops = [op for op in ops if isinstance(op, dict)]
+            kinds = sorted(
+                {
+                    str(op.get("kind") or (op.get("data") or {}).get("kind") or "")
+                    for op in dict_ops
+                }
+            )
+            self._audit.append(
+                ("txn", f"{'+'.join(kinds)}:{len(ops)}", as_user)
+            )
+            defer = self._wal is not None
+            prev_buf = getattr(self._wal_local, "buf", None)
+            if defer:
+                self._wal_local.buf = []
+            results: List[Optional[dict]] = []
+            try:
+                for op in ops:
+                    verb = op["verb"]
+                    user = op.get("as_user") or as_user
+                    if verb == "create":
+                        out = self.create(
+                            op["data"],
+                            namespace=op.get("namespace"),
+                            as_user=user,
+                            copy_result=copy_results,
+                        )
+                    elif verb == "patch":
+                        out = self.patch(
+                            op["kind"],
+                            op["name"],
+                            op.get("data"),
+                            patch_type=op.get("patch_type", "merge"),
+                            namespace=op.get("namespace"),
+                            subresource=op.get("subresource", ""),
+                            as_user=user,
+                            expect=op.get("expect"),
+                            copy_result=copy_results,
+                        )
+                    else:
+                        out = self.delete(
+                            op["kind"],
+                            op["name"],
+                            namespace=op.get("namespace"),
+                            as_user=user,
+                            copy_result=copy_results,
+                        )
+                    results.append(out)
+            except BaseException:
+                # validation guarantees this is unreachable for
+                # precondition failures; what remains is a crash hook
+                # (chaos/DST) or a genuine bug.  Drop the buffered
+                # prefix so the WAL never learns a partial txn — the
+                # simulated process death that follows discards the
+                # partially-committed memory state with it.
+                if defer:
+                    self._wal_local.buf = prev_buf
+                raise
+            if defer:
+                buf = self._wal_local.buf
+                self._wal_local.buf = prev_buf
+                if buf:
+                    txn = {
+                        "t": "txn",
+                        "rv": max(int(r.get("rv", 0) or 0) for r in buf),
+                        "recs": buf,
+                    }
+                    try:
+                        # _wal_put: lands directly, or joins an outer
+                        # bulk deferral as one (still atomic) record
+                        self._wal_put(txn)
+                    except WalExhausted as exc:
+                        # committed in memory but not durable: refuse
+                        # the ack; a crash before space returns rolls
+                        # the whole txn back together (see bulk())
+                        raise StorageDegraded(exc.reason, str(exc)) from exc
+            return results
+
+    # -------------------------------------------------------------- persistence
+
+    def dump_state(self, copy: bool = True) -> dict:
+        """Raw state snapshot — the etcd-snapshot analog (reference
+        kwokctl saves etcd verbatim, pkg/kwokctl/etcd/{save,load}.go).
+        Captures the type registry, every object, and the rv/uid
+        counters so a restore is byte-identical.
+
+        ``copy=False`` shares the stored instances (the read-only
+        handed-out-by-reference contract): the rv-consistent cut is
+        taken under one brief mutex hold and serialization happens
+        outside the lock — the online-snapshot path.  Only safe while
+        the in-place status lane cannot run (a WAL is attached, or the
+        caller otherwise knows no lane grants are live)."""
+        out = copy_json if copy else (lambda o: o)
+        with self._mut:
+            types = []
+            objects = []
+            for rt in self.kinds():
+                types.append(
+                    {
+                        "api_version": rt.api_version,
+                        "kind": rt.kind,
+                        "plural": rt.plural,
+                        "namespaced": rt.namespaced,
+                    }
+                )
+                st = self._state(rt.kind)
+                objects.extend(out(o) for o in st.objects.values())
+            return {
+                "resourceVersion": self._rv,
+                "uidCounter": self._uid,
+                "types": types,
+                "objects": objects,
+            }
+
+    def restore_state(self, state: dict) -> int:
+        """Load a :meth:`dump_state` snapshot, *replacing* the current
+        contents — objects created after the save are deleted, matching
+        the reference's etcd-level restore which swaps the whole DB
+        (pkg/kwokctl/etcd save/restore). Watchers see DELETED for the
+        removed state and ADDED for every restored object (a restore
+        behaves like a fresh re-list)."""
+        with self._mut:
+            # gated like every other mutation: a restore rewrites the
+            # WAL wholesale (reset + full re-ADD), and starting that on
+            # a disk that cannot take writes would leave the log
+            # partially rewritten behind an in-memory state it no
+            # longer covers
+            self._check_writable()
+            for t in state.get("types", []):
+                self.register_type(
+                    ResourceType(
+                        api_version=t["api_version"],
+                        kind=t["kind"],
+                        plural=t["plural"],
+                        namespaced=t["namespaced"],
+                    )
+                )
+            self._rv = max(self._rv, int(state.get("resourceVersion", 0)))
+            self._uid = max(self._uid, int(state.get("uidCounter", 0)))
+            for rt in self.kinds():
+                st = self._state(rt.kind)
+                for key, old in list(st.objects.items()):
+                    del st.objects[key]
+                    self._index_update(st, key, old, None)
+                    self._emit(st, DELETED, old, self._rv)
+            n = 0
+            for obj in state.get("objects", []):
+                st = self._state(obj.get("kind") or "")
+                key = self._key(st, obj)
+                old = st.objects.get(key)
+                st.objects[key] = copy_json(obj)
+                self._index_update(st, key, old, obj)
+                self._emit(st, ADDED, obj, self._rv)
+                n += 1
+            # a restore behaves like a fresh re-list: resumes from
+            # before it are answered with Expired, not a partial replay
+            self._history_floor = self._rv
+            if self._wal is not None:
+                # the log's old coverage is superseded wholesale; make
+                # the restored keyspace itself durable so a crash before
+                # the next snapshot cannot roll it back.  A pressure
+                # window opening mid-rewrite surfaces as StorageDegraded
+                # (the restore was never acked — the operator retries
+                # once writes re-arm and the idempotent reset rewrites
+                # the log whole again), never as a raw 500.
+                try:
+                    self._wal.reset()
+                    self._wal.append({"t": "reset", "rv": self._rv})
+                    for rt in self.kinds():
+                        self._wal.append(
+                            {
+                                "t": "type",
+                                "rv": self._rv,
+                                "api_version": rt.api_version,
+                                "kind": rt.kind,
+                                "plural": rt.plural,
+                                "namespaced": rt.namespaced,
+                            }
+                        )
+                    for rt in self.kinds():
+                        st = self._state(rt.kind)
+                        for obj in st.objects.values():
+                            self._wal_event(ADDED, obj, self._rv)
+                    self._wal.sync()
+                except WalExhausted as exc:
+                    raise StorageDegraded(exc.reason, str(exc)) from exc
+            return n
+
+    def save_file(self, path: str) -> None:
+        """Snapshot to ``path`` with an embedded integrity checksum,
+        then compact the WAL behind it.
+
+        Online consistent cut: with a WAL attached every mutation path
+        is copy-on-write (the in-place status lane is disabled), so the
+        state can be captured as shared references under one brief
+        mutex hold and serialized OUTSIDE the lock — writers are never
+        stalled for the disk write.  Without a WAL the in-place lane
+        may mutate stored objects, so the deep-copy capture is kept."""
+        from kwok_tpu_torch.cluster.wal import write_state_file
+
+        # kwoklint: disable=guarded-by — attach-once WAL slot, GIL-atomic identity read
+        state = self.dump_state(copy=self._wal is None)
+        write_state_file(path, state)
+        self.compact_wal(int(state["resourceVersion"]))
+
+    def compact_wal(self, upto_rv: int) -> None:
+        """Retire WAL records a durable snapshot at ``upto_rv`` covers.
+        Under the store mutex: compaction seals and renames log files,
+        and appends (which all hold the mutex) must never hit a handle
+        mid-swap.  Mutations that landed after the snapshot cut have rv
+        above it and stay live."""
+        with self._mut:
+            if self._wal is not None:
+                self._wal.compact(int(upto_rv))
+
+    def load_file(self, path: str) -> int:
+        """Load a snapshot, verifying its embedded checksum when
+        present (:func:`kwok_tpu_torch.cluster.wal.read_state_file`); raises
+        ``SnapshotCorruption`` on a damaged file instead of silently
+        restoring corrupt objects."""
+        from kwok_tpu_torch.cluster.wal import read_state_file
+
+        return self.restore_state(read_state_file(path))
+
+    def replay_wal(self, path: str) -> int:
+        """Boot-time crash recovery: apply WAL records beyond the
+        already-loaded snapshot (call after :meth:`load_file`, before
+        :meth:`attach_wal` and before serving).  Replayed events also
+        repopulate the watch-history ring, so informers that were
+        mid-watch when the process died resume at their last
+        resourceVersion through the ordinary reflector path instead of
+        re-listing; resumes from below the replay window still get
+        Expired via the history floor.
+
+        Strict: raises :class:`kwok_tpu_torch.cluster.wal.WalCorruption` on
+        mid-log damage (a torn tail is tolerated).  Boot paths that
+        must make progress over a damaged log use :meth:`recover_wal`,
+        which applies every verifiable record and *reports* the exact
+        loss.  Returns the number of applied records."""
+        from kwok_tpu_torch.cluster import wal as _wal
+
+        s = _wal.scan(path)
+        s.raise_if_corrupt()
+        report = self._apply_wal_scan(s)
+        return report.applied
+
+    def recover_wal(
+        self, path: str, files=None, rv_continuity: bool = True
+    ) -> "RecoveryReport":
+        """Tolerant boot recovery: apply every verifiable WAL record
+        (including those after a corrupt region) and report exactly
+        what is missing — the recovered state plus the reported-lost
+        set together account for every resourceVersion the log was
+        supposed to cover, which is the honesty contract the DST
+        ``recovery-honesty`` invariant checks
+        (``kwok_tpu/dst/invariants.py:1``).
+
+        ``files`` overrides the scanned file set (ordered oldest
+        first) — the PITR boot fallback replays archived segments
+        ahead of the live log this way.
+
+        ``rv_continuity=False`` skips the per-log missing-rv
+        computation: one shard of a sharded store holds a deliberately
+        sparse slice of the cluster-wide rv sequence, and continuity
+        only holds over the union of the shards
+        (``kwok_tpu/cluster/sharding/recovery.py`` computes it
+        there)."""
+        from kwok_tpu_torch.cluster import wal as _wal
+
+        if files is not None:
+            s = _wal.scan_files(list(files))
+        else:
+            s = _wal.scan(path)
+        report = self._apply_wal_scan(s, rv_continuity=rv_continuity)
+        with self._mut:
+            self.wal_recoveries += 1
+            self.wal_corruptions += len(report.corruptions)
+            self.wal_missing_rvs += len(report.missing_rvs)
+        return report
+
+    def replay_records(self, records) -> int:
+        """Apply an explicit, already-verified WAL record list (the
+        point-in-time rebuild path, kwok_tpu_torch.snapshot.pitr: archived
+        segments + live log, pre-filtered to the target rv).  Records
+        at or below the current resourceVersion are treated as covered,
+        like :meth:`replay_wal`.  Returns the applied count."""
+        from kwok_tpu_torch.cluster.wal import WalScan
+
+        return self._apply_wal_scan(WalScan(records=list(records))).applied
+
+    def _apply_wal_scan(self, s, rv_continuity: bool = True) -> "RecoveryReport":
+        """Apply a tolerant scan's records and compute the recovery
+        report (missing resourceVersions, tail exposure)."""
+        n = 0
+        observed: set = set()
+        with self._mut:
+            boot_floor = self._rv
+            floor = self._rv
+            reset_rv = 0
+            # rv order, not file order: the bulk lane's deferred batch
+            # write can interleave after another thread's direct
+            # records in the file (stable sort keeps same-rv runs —
+            # e.g. a restore dump — in their written order)
+            records = sorted(
+                s.records, key=lambda r: int(r.get("rv", 0) or 0)
+            )
+            for rec in records:
+                t = rec.get("t")
+                if t == "type":
+                    self.register_type(
+                        ResourceType(
+                            api_version=rec["api_version"],
+                            kind=rec["kind"],
+                            plural=rec["plural"],
+                            namespaced=bool(rec.get("namespaced", True)),
+                        )
+                    )
+                    continue
+                if t == "reset":
+                    if int(rec.get("rv", 0) or 0) <= floor:
+                        # the snapshot postdates this restore and
+                        # already reflects it; wiping here would drop
+                        # snapshot-covered objects whose re-ADD records
+                        # were legitimately compacted away (segments
+                        # are retired whole, so a straddling segment
+                        # can retain a stale reset)
+                        continue
+                    # a state restore wiped the keyspace after the
+                    # snapshot this boot loaded — start from empty and
+                    # apply everything that follows
+                    for rt in self.kinds():
+                        st = self._state(rt.kind)
+                        for key, old in list(st.objects.items()):
+                            del st.objects[key]
+                            self._index_update(st, key, old, None)
+                    floor = -1
+                    reset_rv = max(reset_rv, int(rec.get("rv", 0)))
+                    self._rv = max(self._rv, int(rec.get("rv", 0)))
+                    # resumes from before the restore point are stale
+                    self._history_floor = max(
+                        self._history_floor, int(rec.get("rv", 0))
+                    )
+                    n += 1
+                    continue
+                rv = int(rec.get("rv", 0) or 0)
+                # this walk mirrors wal.record_rvs (kept inline: replay
+                # interleaves application with the rv accounting) — a
+                # new record type must be threaded through both
+                if t == "void":
+                    # an allocated-then-rolled-back rv (sharded undo
+                    # path, ResourceStore._unbump): the number was
+                    # never a commit — covered, not lost
+                    observed.add(rv)
+                    continue
+                if t == "ev":
+                    observed.add(rv)
+                elif t == "status":
+                    for item in rec.get("i") or []:
+                        try:
+                            observed.add(int(item[3]))
+                        except (LookupError, TypeError, ValueError):
+                            pass
+                elif t == "txn":
+                    # one frame, many commits (transact()): the frame's
+                    # CRC makes the batch all-or-nothing on disk; replay
+                    # applies its inner events in rv order.  Inner rvs
+                    # can never interleave with other records' — the
+                    # txn holds the store mutex end to end
+                    inner = [
+                        sub
+                        for sub in rec.get("recs") or []
+                        if sub.get("t") == "ev"
+                    ]
+                    applied = False
+                    for sub in sorted(
+                        inner, key=lambda r: int(r.get("rv", 0) or 0)
+                    ):
+                        srv = int(sub.get("rv", 0) or 0)
+                        observed.add(srv)
+                        if srv <= floor:
+                            continue
+                        self._replay_event(sub)
+                        applied = True
+                    if applied:
+                        n += 1
+                    continue
+                if rv <= floor:
+                    continue  # the snapshot already covers this record
+                if t == "ev":
+                    self._replay_event(rec)
+                    n += 1
+                elif t == "status":
+                    self._replay_status(rec)
+                    n += 1
+            self._history_floor = max(self._history_floor, max(floor, 0))
+            recovered_rv = self._rv
+            # every rv between the effective floor and the highest
+            # observed one corresponds to exactly one logged commit
+            # (the in-place lane is disabled while a WAL is attached);
+            # a hole is a lost (or never-durable) record — report it,
+            # never guess
+            base = max(boot_floor, reset_rv)
+            missing = (
+                [
+                    rv
+                    for rv in range(base + 1, recovered_rv + 1)
+                    if rv not in observed
+                ]
+                if rv_continuity
+                else []
+            )
+            tail_after_rv = (
+                recovered_rv
+                if (s.torn_tail or s.corruptions)
+                else None
+            )
+        return RecoveryReport(
+            applied=n,
+            floor=boot_floor,
+            recovered_rv=recovered_rv,
+            missing_rvs=missing,
+            corruptions=list(s.corruptions),
+            torn_tail=s.torn_tail,
+            tail_after_rv=tail_after_rv,
+            observed_rvs=observed,
+        )
+
+    def _replay_event(self, rec: dict) -> None:
+        obj = rec["o"]
+        etype = rec["e"]
+        rv = int(rec["rv"])
+        try:
+            st = self._state(obj.get("kind") or "")
+        except NotFound:
+            return  # type record lost to a torn tail; object is too
+        key = self._key(st, obj)
+        old = st.objects.get(key)
+        if etype == DELETED:
+            if old is not None:
+                del st.objects[key]
+                self._index_update(st, key, old, None)
+        else:
+            st.objects[key] = obj
+            self._index_update(st, key, old, obj)
+        self._rv = max(self._rv, rv)
+        self._uid = max(self._uid, int(rec.get("u", 0)))
+        # no watchers exist at boot: append to history only, so later
+        # watch(since_rv=...) resumes replay it
+        st.history.append(WatchEvent(type=etype, object=obj, rv=rv))
+
+    def _replay_status(self, rec: dict) -> None:
+        try:
+            st = self._state(rec["k"])
+        except NotFound:
+            return
+        namespaced = st.rtype.namespaced
+        for ns, name, status, rv in rec["i"]:
+            key = ((ns or "default") if namespaced else "", name)
+            cur = st.objects.get(key)
+            if cur is None:
+                continue
+            new = dict(cur)
+            new["status"] = status
+            nm = dict(cur["metadata"])
+            nm["resourceVersion"] = str(rv)
+            new["metadata"] = nm
+            st.objects[key] = new
+            self._index_update(st, key, cur, new)
+            st.history.append(WatchEvent(type=MODIFIED, object=new, rv=int(rv)))
+            self._rv = max(self._rv, int(rv))
+
+    # -------------------------------------------------------------------- stats
+
+    @property
+    def resource_version(self) -> int:
+        with self._mut:
+            return self._rv
+
+    def count(self, kind: str) -> int:
+        with self._mut:
+            return len(self._state(kind).objects)
+
+    def audit_log(self) -> List[Tuple[str, str, Optional[str]]]:
+        with self._mut:
+            return list(self._audit)
+
+    @property
+    def audit_overflow(self) -> int:
+        """Entries the bounded audit ring has evicted; nonzero means
+        ``audit_log()`` covers a truncated window (scraped at /metrics,
+        checked by the DST invariant runner)."""
+        with self._mut:
+            return self._audit.dropped
+
+    def wal_health(self) -> Optional[dict]:
+        """The attached WAL's health surface (segment count, live
+        bytes, last-fsync age) plus this store's integrity counters;
+        None when no log is attached.  Served on /stats and /metrics,
+        shown by ``kwokctl get components``."""
+        with self._mut:
+            if self._wal is None:
+                return None
+            h = dict(self._wal.health())
+            h["recoveries"] = self.wal_recoveries
+            h["corruptions"] = self.wal_corruptions
+            h["missing_rvs"] = self.wal_missing_rvs
+            h["snapshot_fallbacks"] = self.snapshot_fallbacks
+        return h
+
+
+@dataclass
+class RecoveryReport:
+    """What a tolerant WAL recovery (:meth:`ResourceStore.recover_wal`)
+    applied and — critically — what it could prove was lost.
+
+    The honesty contract: every resourceVersion in ``(floor,
+    recovered_rv]`` is either applied (in ``observed_rvs``) or listed
+    in ``missing_rvs``; writes beyond ``recovered_rv`` can only have
+    been lost when ``tail_after_rv`` is set (torn tail or corruption
+    touching the end of the log).  Nothing is ever silently skipped."""
+
+    applied: int
+    floor: int
+    recovered_rv: int
+    missing_rvs: List[int]
+    corruptions: List[dict]
+    torn_tail: int
+    #: when set, writes with rv > this value MAY have been lost (the
+    #: log's end was damaged); None means the tail is provably intact
+    tail_after_rv: Optional[int]
+    #: every rv the scan saw (applied or snapshot-covered)
+    observed_rvs: set = field(default_factory=set)
+
+    @property
+    def clean(self) -> bool:
+        return not self.corruptions and not self.missing_rvs
+
+    def account(self, acked) -> Tuple[List[int], List[int]]:
+        """Classify acked resourceVersions against this recovery:
+        returns ``(reported_lost, silent_lost)``.  An acked rv is
+        covered (by the boot snapshot or an applied record), reported
+        lost (in ``missing_rvs``, or beyond a damaged tail), or —
+        the violation both the corruption smoke and the DST
+        recovery-honesty invariant hunt — silently gone."""
+        reported: List[int] = []
+        silent: List[int] = []
+        missing = set(self.missing_rvs)
+        for rv in sorted(acked):
+            if rv <= self.floor or rv in self.observed_rvs:
+                continue
+            if rv in missing or (
+                self.tail_after_rv is not None and rv > self.tail_after_rv
+            ):
+                reported.append(rv)
+            else:
+                silent.append(rv)
+        return reported, silent
+
+    def summary(self) -> dict:
+        """JSON-able digest (the full rv set stays out of logs)."""
+        return {
+            "applied": self.applied,
+            "recovered_rv": self.recovered_rv,
+            "missing_rvs": self.missing_rvs[:50],
+            "missing_rv_count": len(self.missing_rvs),
+            "corruptions": len(self.corruptions),
+            "torn_tail": self.torn_tail,
+            "tail_after_rv": self.tail_after_rv,
+        }
+
+
+class EventRecorder:
+    """Aggregating k8s Event recorder (reference: controllers emit
+    events via an EventBroadcaster, pod_controller.go:304-311; repeats
+    aggregate by bumping ``count``)."""
+
+    #: correlation-cache bound; oldest aggregation keys are evicted (k8s
+    #: event correlators use an LRU the same way)
+    MAX_KEYS = 65536
+
+    def __init__(
+        self,
+        store: ResourceStore,
+        source: str = "kwok",
+        clock: Optional[Clock] = None,
+        suffix: Optional[Callable[[], str]] = None,
+    ):
+        self._store = store
+        self._source = source
+        self._clock = clock or RealClock()
+        #: uniquifying Event-name suffix; default is wall-entropy
+        #: (monotonic ns), simulated-time runs inject a deterministic
+        #: counter so Event names are seed-stable (kwok_tpu_torch.dst)
+        self._suffix = suffix or (lambda: f"{time.monotonic_ns():x}")
+        self._mut = make_lock("cluster.store.EventRecorder._mut")
+        self._keys: "OrderedDict[Tuple, str]" = OrderedDict()
+        guarded(self, "_keys", "cluster.store.EventRecorder._mut")
+
+    def _now_string(self) -> str:
+        """Event timestamps are client-side in k8s (the recording
+        component's clock) — injectable so simulated-time runs stamp
+        events on the simulation clock, store/client agnostic."""
+        t = datetime.datetime.fromtimestamp(
+            self._clock.now(), datetime.timezone.utc
+        )
+        return t.isoformat(timespec="seconds").replace("+00:00", "Z")
+
+    def event(self, involved: dict, etype: str, reason: str, message: str) -> dict:
+        meta = involved.get("metadata") or {}
+        key = (meta.get("uid"), etype, reason, message)
+        ns = meta.get("namespace") or "default"
+        now = self._now_string()
+        with self._mut:
+            name = self._keys.get(key)
+            if name is not None:
+                try:
+                    cur = self._store.get("Event", name, namespace=ns)
+                    self._keys.move_to_end(key)
+                    return self._store.patch(
+                        "Event",
+                        name,
+                        {"count": int(cur.get("count") or 1) + 1, "lastTimestamp": now},
+                        "merge",
+                        namespace=ns,
+                    )
+                except NotFound:
+                    del self._keys[key]
+            name = f"{meta.get('name', 'unknown')}.{self._suffix()}"
+            ev = {
+                "apiVersion": "v1",
+                "kind": "Event",
+                "metadata": {"name": name, "namespace": ns},
+                "involvedObject": {
+                    "apiVersion": involved.get("apiVersion"),
+                    "kind": involved.get("kind"),
+                    "name": meta.get("name"),
+                    "namespace": meta.get("namespace"),
+                    "uid": meta.get("uid"),
+                },
+                "reason": reason,
+                "message": message,
+                "type": etype,
+                "count": 1,
+                "firstTimestamp": now,
+                "lastTimestamp": now,
+                "source": {"component": self._source},
+            }
+            created = self._store.create(ev)
+            self._keys[key] = name
+            while len(self._keys) > self.MAX_KEYS:
+                self._keys.popitem(last=False)
+            return created

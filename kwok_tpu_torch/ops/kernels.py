@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("tick.cu", "scatter.cu")
+SOURCES = ("tick.cu", "scatter.cu", "lease.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -102,9 +102,12 @@ def _lib(src: str) -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p]
             lib.kwok_threefry_draws.restype = ctypes.c_int
-        else:
+        elif src == "scatter.cu":
             lib.kwok_scatter_rows.argtypes = [ctypes.POINTER(ScatterArgs), ctypes.c_void_p]
             lib.kwok_scatter_rows.restype = ctypes.c_int
+        else:
+            lib.kwok_lease_tick.argtypes = [ctypes.POINTER(LeaseArgs), ctypes.c_void_p]
+            lib.kwok_lease_tick.restype = ctypes.c_int
         _libs[src] = lib
     return lib
 
@@ -134,6 +137,12 @@ ScatterArgs = _struct("ScatterArgs", [
         "rows", "src_features", "src_sig", "src_ovc", "src_stage", "src_fire_at",
         "src_active", "src_rematch", "src_del_ts")],
     ("b", ctypes.c_int64), ("C", ctypes.c_int32),
+])
+#: field for field the ``LeaseArgs`` struct of csrc/lease.cu
+LeaseArgs = _struct("LeaseArgs", [
+    *[(f, _P) for f in ("fire_in", "key_in", "fire_out", "due", "lag", "key_out")],
+    ("n", ctypes.c_int64),
+    *[(f, ctypes.c_int32) for f in ("now", "renew_ms", "jitter_ms")],
 ])
 
 
@@ -255,6 +264,32 @@ def scatter_rows(soa, rows, features, sig, ovc, stage, fire_at, active, rematch,
     lib = _lib("scatter.cu")
     with torch.cuda.device(dev):
         _raise_on(lib.kwok_scatter_rows(ctypes.byref(a), _stream(dev)), "kwok_scatter_rows")
+
+
+def lease_tick(fire_at, key, now: int, renew_ms: int, jitter_ms: int):
+    """Launch csrc/lease.cu.  Returns fresh ``(fire_at, due, lag, key)``;
+    the inputs are left as they were."""
+    dev = fire_at.device
+    if dev.type != "cuda":
+        raise ValueError(f"lease_tick needs CUDA tensors, got {dev}")
+    n = fire_at.shape[0] if fire_at.dim() == 1 else -1
+    a = LeaseArgs()
+    a.fire_in = _check("fire_at", fire_at, torch.int32, (n,), dev)
+    a.key_in = _check("key", key, torch.uint32, (2,), dev)
+    if n == 0:
+        raise ValueError("lease_tick needs at least one slot")
+    outs = (
+        torch.empty(n, dtype=torch.int32, device=dev),
+        torch.empty(n, dtype=torch.bool, device=dev),
+        torch.empty(n, dtype=torch.int32, device=dev),
+        torch.empty(2, dtype=torch.uint32, device=dev),
+    )
+    a.fire_out, a.due, a.lag, a.key_out = (t.data_ptr() for t in outs)
+    a.n, a.now, a.renew_ms, a.jitter_ms = n, now, renew_ms, jitter_ms
+    lib = _lib("lease.cu")
+    with torch.cuda.device(dev):
+        _raise_on(lib.kwok_lease_tick(ctypes.byref(a), _stream(dev)), "kwok_lease_tick")
+    return outs
 
 
 def threefry_draws(key: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -17,9 +17,10 @@ draws, and the random bits are threefry2x32 reproduced bit for bit
 (``ops/prng.py``), so the port equals the JAX package exactly.
 
 Each public function (``tick``, ``run_ticks_collect``, ``run_ticks``,
-``scatter_rows``) takes its plain PyTorch version (the ``_*_impl``
-functions) for tensors on the CPU and launches its CUDA kernel
-(``csrc/tick.cu``, ``csrc/scatter.cu``) for tensors on a CUDA device;
+``scatter_rows``, ``lease_tick``) takes its plain PyTorch version (the
+``_*_impl`` functions) for tensors on the CPU and launches its CUDA
+kernel (``csrc/tick.cu``, ``csrc/scatter.cu``, ``csrc/lease.cu``) for
+tensors on a CUDA device;
 any other device raises.  Each counts its kernel launches in its
 ``launches`` attribute.
 
@@ -75,6 +76,14 @@ class SoA(NamedTuple):
     del_ts: torch.Tensor  # [N] int32 deletionTimestamp virtual ms (SENTINEL = absent)
     now: torch.Tensor  # [] int32 virtual ms
     key: torch.Tensor  # [2] uint32 threefry key
+
+
+class LeaseLane(NamedTuple):
+    """Device-resident lease-renewal timers: one slot per held node.
+    All due leases of a tick drain as one batched write-back."""
+
+    fire_at: torch.Tensor  # [N] int32 virtual ms; NEVER = empty slot
+    key: torch.Tensor  # [2] uint32 threefry key (renewal jitter)
 
 
 class TickOut(NamedTuple):
@@ -269,6 +278,35 @@ def _scatter_rows_impl(
     return soa
 
 
+def _int32(name: str, v) -> int:
+    v = int(v)
+    if not -(2**31) <= v < 2**31:
+        raise ValueError(f"{name} {v} does not fit int32")
+    return v
+
+
+def _lease_tick_impl(
+    lane: LeaseLane, now: int, renew_ms: int, jitter_ms: int
+) -> Tuple[LeaseLane, torch.Tensor, torch.Tensor]:
+    """One pass: slots whose renewal is due, their lag, and rescheduled
+    fire times (renew interval + one-sided jitter).  Returns a new lane
+    (fresh ``fire_at`` and ``key``), ``due`` [N] bool and ``lag`` [N]
+    int32."""
+    keys = prng.split(lane.key, 2)
+    key, k = keys[0], keys[1]
+    dev = lane.fire_at.device
+    now_t = torch.tensor(_int32("now", now), dtype=torch.int32, device=dev)
+    renew_t = torch.tensor(_int32("renew_ms", renew_ms), dtype=torch.int32, device=dev)
+    jitter_f = torch.tensor(_int32("jitter_ms", jitter_ms), dtype=torch.int32,
+                            device=dev).to(torch.float32)
+    due = lane.fire_at <= now_t
+    u = prng.uniform(k, lane.fire_at.shape[0])
+    nxt = now_t + renew_t + (u * jitter_f).to(torch.int32)
+    lag = torch.where(due, now_t - lane.fire_at, 0)
+    fire_at = torch.where(due, nxt, lane.fire_at)
+    return LeaseLane(fire_at=fire_at, key=key), due, lag
+
+
 # ------------------------------------------------------------------- wrappers
 
 
@@ -344,13 +382,28 @@ def scatter_rows(
     return soa
 
 
+def lease_tick(
+    lane: LeaseLane, now: int, renew_ms: int, jitter_ms: int
+) -> Tuple[LeaseLane, torch.Tensor, torch.Tensor]:
+    """One lease-lane pass at virtual ``now``; returns ``(lane, due,
+    lag)`` with a fresh lane.  The integers must fit int32."""
+    if not _on_cuda(lane.fire_at):
+        return _lease_tick_impl(lane, now, renew_ms, jitter_ms)
+    fire_at, due, lag, key = kernels.lease_tick(
+        lane.fire_at, lane.key, _int32("now", now), _int32("renew_ms", renew_ms),
+        _int32("jitter_ms", jitter_ms))
+    lease_tick.launches += 1
+    return LeaseLane(fire_at=fire_at, key=key), due, lag
+
+
 tick.launches = 0
 run_ticks_collect.launches = 0
 run_ticks.launches = 0
 scatter_rows.launches = 0
+lease_tick.launches = 0
 
 #: the kernel wrappers, each with its ``launches`` count
-KERNEL_WRAPPERS = (tick, run_ticks_collect, run_ticks, scatter_rows)
+KERNEL_WRAPPERS = (tick, run_ticks_collect, run_ticks, scatter_rows, lease_tick)
 
 
 def reset_launches() -> None:

@@ -2,9 +2,12 @@
 stage set into exactly the tables of kwok_tpu's compiler.
 
 kwok_tpu_torch keeps copies of the jax-free host modules (stage API,
-kq, templates, compiler) instead of importing kwok_tpu.  These tests
-catch drift: the copies must stay the originals with only their import
-lines changed, and must produce identical compiled tables.
+kq, templates, compiler, and the store, informer, clock, queue, native
+drain and host controllers the device backend needs) instead of
+importing kwok_tpu.  These tests catch drift: the copies must stay the
+originals with only the package name in their dotted module names
+changed (in import lines, and where a comment names a module), and the
+compiler copy must produce identical compiled tables.
 """
 
 import re
@@ -35,6 +38,32 @@ COPIED = [
     "engine/lifecycle.py",
     "engine/compiler.py",
     "stages/__init__.py",
+    "api/config.py",
+    "utils/clock.py",
+    "utils/log.py",
+    "utils/locks.py",
+    "utils/backoff.py",
+    "utils/queue.py",
+    "utils/ssa.py",
+    "utils/telemetry.py",
+    "utils/trace.py",
+    "native/__init__.py",
+    "native/queue.py",
+    "native/fastdrain.py",
+    "cluster/__init__.py",
+    "cluster/wal.py",
+    "cluster/store.py",
+    "cluster/informer.py",
+    "cluster/client.py",
+    "cluster/election.py",
+    "engine/render_plan.py",
+    "controllers/utils.py",
+    "controllers/base.py",
+    "controllers/stage_controller.py",
+    "controllers/stages_manager.py",
+    "controllers/node_controller.py",
+    "controllers/pod_controller.py",
+    "controllers/node_lease_controller.py",
 ]
 
 

@@ -20,6 +20,12 @@ import numpy as np
 import pytest
 import torch
 
+from kwok_tpu_torch.api.config import KwokConfiguration
+from kwok_tpu_torch.cluster.store import ResourceStore
+from kwok_tpu_torch.controllers.controller import Controller
+from kwok_tpu_torch.controllers.device_lease import DeviceLeaseLane
+from kwok_tpu_torch.controllers.device_player import DeviceStagePlayer
+from kwok_tpu_torch.controllers.node_lease_controller import NodeLeaseController
 from kwok_tpu_torch.engine.simulator import DeviceSimulator
 from kwok_tpu_torch.ops import prng
 from kwok_tpu_torch.ops import tick as tt
@@ -35,10 +41,13 @@ PORT_FILES = sorted(
 def test_imports_without_jax_or_kwok_tpu():
     code = textwrap.dedent(
         """
-        import importlib, pkgutil, sys
+        import importlib, os, pkgutil, sys
         sys.modules["jax"] = None  # any import of jax now raises
         import kwok_tpu_torch
-        names = [m.name for m in pkgutil.walk_packages(kwok_tpu_torch.__path__, "kwok_tpu_torch.")]
+        # every Python module; not the native libraries built beside them
+        names = [m.name for m in pkgutil.walk_packages(kwok_tpu_torch.__path__, "kwok_tpu_torch.")
+                 if m.ispkg or os.path.exists(
+                     os.path.join(m.module_finder.path, m.name.rsplit(".", 1)[1] + ".py"))]
         for name in names:
             importlib.import_module(name)
         import chip_smoke
@@ -73,6 +82,12 @@ def test_entry_points_raise_without_cuda():
         tt.resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA"):
         prng.prng_key(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Controller(ResourceStore(), KwokConfiguration(backend="device"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceStagePlayer(ResourceStore(), "Pod", load_builtin("pod-fast"), capacity=4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceLeaseLane(NodeLeaseController(ResourceStore(), "a"), capacity=4)
 
 
 def test_wrappers_refuse_devices_without_kernel_or_plain_version():
@@ -83,6 +98,10 @@ def test_wrappers_refuse_devices_without_kernel_or_plain_version():
         tt.tick(params, meta, 100)
     with pytest.raises(ValueError, match="meta"):
         tt.run_ticks_collect(params, meta, 100, 8)
+    lane = tt.LeaseLane(fire_at=torch.zeros(4, dtype=torch.int32, device="meta"),
+                        key=torch.zeros(2, dtype=torch.uint32, device="meta"))
+    with pytest.raises(ValueError, match="meta"):
+        tt.lease_tick(lane, 0, 1, 0)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -91,7 +110,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tt.reset_launches()
     sim.tick_many(100, 8)
     sim.step(100)
-    assert tt.launches() == {"tick": 0, "run_ticks_collect": 0, "run_ticks": 0, "scatter_rows": 0}
+    tt.lease_tick(tt.LeaseLane(fire_at=torch.zeros(4, dtype=torch.int32),
+                               key=prng.prng_key(0, "cpu")), 0, 1, 0)
+    assert tt.launches() == {"tick": 0, "run_ticks_collect": 0, "run_ticks": 0,
+                             "scatter_rows": 0, "lease_tick": 0}
 
 
 @pytest.fixture
@@ -127,3 +149,23 @@ def test_kernels_equal_plain_versions_on_the_card(cuda_device):
     for f in ("features", "stage", "fire_at", "active", "rematch", "now"):
         assert torch.equal(getattr(ks, f), getattr(ps, f)), f
     assert torch.equal(ks.key.view(torch.int32), ps.key.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_lease_tick_equals_plain_version_on_the_card(cuda_device):
+    from kwok_tpu_torch.engine.compiler import NEVER
+
+    rng = np.random.default_rng(1)
+    n, now = 40_003, 70_000
+    fire = (now + rng.integers(-20_000, 20_000, n)).astype(np.int32)
+    fire[rng.random(n) < 0.25] = NEVER
+    fire[rng.random(n) < 0.1] = now
+    for renew, jitter in ((10_000, 400), (10_000, 0), (2**30, 2**29)):
+        lane = tt.LeaseLane(fire_at=torch.from_numpy(fire).to(cuda_device),
+                            key=prng.prng_key(9, cuda_device))
+        got = tt.lease_tick(lane, now, renew, jitter)
+        want = tt._lease_tick_impl(lane, now, renew, jitter)
+        torch.cuda.synchronize()
+        for g, w in zip((got[0].fire_at, got[1], got[2]), (want[0].fire_at, want[1], want[2])):
+            assert torch.equal(g, w)
+        assert torch.equal(got[0].key.view(torch.int32), want[0].key.view(torch.int32))
