@@ -11,7 +11,10 @@ Phases, in order; any failure raises and exits non-zero:
    bit (``torch.equal``: the FSM is integer-exact and the PRNG is
    reproduced), on seeded random states of three stage sets at
    N = 4,096 and N = 1,000,003, and the lease lane's ``lease_tick`` at
-   16, 16,384 and 1,000,003 slots;
+   16, 16,384 and 1,000,003 slots; and the row-sharded tick and
+   multi-tick loop over 4 shards of the card, each shard launched with
+   its global row offset, against the plain version of the whole state
+   at N = 4,096 and 1,000,004 (1,000,003 padded to the shards);
 3. the main path through ``DeviceSimulator`` at full width: 1,000,000
    pods of pod-general + pod-chaos and 10,000 nodes of the default lease
    node stages (as the reference ``bench.py`` builds them): macro-ticks
@@ -22,12 +25,23 @@ Phases, in order; any failure raises and exits non-zero:
    126 stages), then macro-ticks timed for 10 s and a bench-style
    ``run_ticks`` window;
    each of its kernels' launch counts must be positive;
+3b. the row-sharded path (``parallel/mesh.py``) at the same width: the
+   1,000,000-pod / 10,000-node simulators unsharded, on
+   ``make_mesh(torch.cuda.device_count())`` (one shard per card) and on
+   4 shards of one card, stepped in lockstep through 100 macro-ticks of
+   K=8 with phase 3's churn every 10; every tick's fired stages and the
+   final SoA must be equal across the three.  Then ``sharded_run_ticks``
+   over the 4 shards at 1M x K=600 against ``run_ticks`` on the same
+   state, and ``graft_entry.dryrun_multichip`` (sharded ticks and the
+   full player drain with GC, checked against unsharded) over 4 shards
+   of the card at 65,536 rows.  Both sharded kernels must have been
+   launched;
 4. each kernel timed at the main path's shapes (CUDA events over
    chained calls, and its device time from torch.profiler) beside its
    plain version and its bound;
 5. the device backend of the Controller facade, as ``kwok --backend
-   device`` runs it: a ResourceStore of 10,000 Nodes and 100,000 Pods
-   (pod-general + pod-chaos, labelled for container-failure chaos, 10
+   device`` runs it: a ResourceStore of 10,000 Nodes and 50,000 Pods
+   (pod-general + pod-chaos, labelled for container-failure chaos, 5
    per node), ``Controller(backend="device")`` started paced, both kinds
    on device players and node leases renewed by the device lease lane;
    after every row's first transition, one timed window of 30 s
@@ -71,22 +85,37 @@ WIDE_TAGGED = 1_000
 PARITY_NS = (4_096, 1_000_003)
 LEASE_PARITY_NS = (16, 16_384, 1_000_003)
 # the facade phase: the lane has device_capacity slots.  Its pods are
-# cut from 1,000,000 to 100,000: the card's host admits and warms
+# cut from 1,000,000 to 50,000: the card's host admits and warms
 # 10,000 nodes' worth of pods at a few hundred pods/s (every node name
-# is a new pod signature to explore), so 1,000,000 pods would not warm
-# inside the script's time limit.
+# is a new pod signature to explore), and 100,000 pods took from 435 s
+# to more than 600 s to warm, as the host's load varied.
 LANE_CAPACITY = 1_048_576
-FACADE_PODS = 100_000
+FACADE_PODS = 50_000
 FACADE_WINDOW_S = 30.0
-# admission of every row and its first transition must end by then
-FACADE_DEADLINE_S = 600.0
+# The whole script must end within 1,000 s.  Admission of every facade
+# row and its first transition may take what is left of SCRIPT_BUDGET_S
+# after the earlier phases, the timed window and FACADE_STOP_S for the
+# controller's stop and the last lines.
+SCRIPT_BUDGET_S = 950.0
+FACADE_STOP_S = 40.0
+
+# the row-sharded phase: shards of one card, macro-ticks, churn cadence,
+# and the reference dry run's rows (__graft_entry__.py:97)
+MESH_SHARDS = 4
+MESH_MACROS = 100
+MESH_CHURN_EVERY = 10
+DRYRUN_ROWS = 65_536
 
 # Least-time model: H100 SXM, 3.35 TB/s HBM.
-# The integer pipe has 64 INT32 lanes per SM (Hopper white paper), half
-# the float32 width behind the card's 67 TFLOP/s, with no FMA doubling:
-# 132 SMs x 64 lanes x 1.98 GHz.
+# 32-bit integer operations at the SM's issue rate: each of its four
+# schedulers issues one warp instruction per clock, 128 lanes per SM,
+# the width behind the card's 67 TFLOP/s float32 without the FMA
+# doubling: 132 SMs x 128 lanes x 1.98 GHz.  The INT32 pipe alone has 64
+# lanes per SM, but integer adds also issue to the FMA pipe (as IMAD),
+# so 64 lanes are no ceiling: the threefry check below ran faster than
+# they allow.
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
 # The operation count is a floor, so that the bound stays a least time:
 # per row and tick the fire test (3: compare, two ands); per rematching
 # row one match pass (3 per condition: and, compare with the negation
@@ -248,9 +277,58 @@ def assert_soa_equal(what, got, want):
         assert_equal(f"{what} soa.{f}", getattr(got, f), getattr(want, f))
 
 
+def clone_sharded(soa):
+    return soa._replace(shards=tuple(clone_soa(s) for s in soa.shards))
+
+
+def assert_sharded_equal(what, sharded, whole):
+    """A ShardedSoA against an unsharded SoA: every row column in row
+    order, and every shard's clock and key."""
+    from kwok_tpu_torch.parallel.mesh import ROW_FIELDS
+
+    for f in ROW_FIELDS:
+        assert_equal(f"{what} soa.{f}", sharded.column(f).to_host(), getattr(whole, f).cpu())
+    for i, shard in enumerate(sharded.shards):
+        assert_equal(f"{what} shard {i} now", shard.now.cpu(), whole.now.cpu())
+        assert_equal(f"{what} shard {i} key", shard.key.cpu(), whole.key.cpu())
+
+
+def sharded_parity(cset, name: str, n: int, seed: int, device) -> None:
+    """The sharded kernels over MESH_SHARDS shards of the card, each
+    launched with its global row offset, against the plain version of
+    the whole, unsharded state: a shard that drew from row 0 would
+    differ on every shard past the first."""
+    from kwok_tpu_torch.ops import tick as T
+    from kwok_tpu_torch.parallel import mesh as M
+
+    mesh = M.make_mesh(devices=[device] * MESH_SHARDS)
+    params, start = random_state(cset, n, seed, device)
+    placed = M.replicate(params, mesh)
+    ks, ps = M.shard_rows(start, mesh), clone_soa(start)
+    step = M.sharded_tick(mesh, DT_MS)
+    label = f"{name} N={n} over {MESH_SHARDS} shards"
+    fired = 0
+    for t in range(20):
+        ks, ko = step(placed, ks)
+        ps, po = T._tick_impl(params, ps, DT_MS)
+        for f in ("fired", "fired_stage", "deleted"):
+            assert_equal(f"{label} sharded_tick {t} out.{f}", getattr(ko, f).to_host(),
+                         getattr(po, f).cpu())
+        assert_equal(f"{label} sharded_tick {t} fired_count", ko.fired_count, po.fired_count)
+        fired += int(ko.fired_count)
+    assert_sharded_equal(f"{label} sharded_tick", ks, ps)
+    ks, kc = M.sharded_run_ticks(mesh, DT_MS, 50)(placed, ks)
+    ps, pc = T._run_ticks_impl(params, ps, DT_MS, 50)
+    assert_equal(f"{label} sharded_run_ticks count", kc, pc)
+    assert_sharded_equal(f"{label} sharded_run_ticks", ks, ps)
+    log(f"parity {label} at offsets {list(ks.offsets)}: sharded_tick x20 (fired {fired}), "
+        f"sharded_run_ticks K=50 (count {int(kc)}) against the unsharded plain version: equal")
+
+
 def phase_parity(device):
     from kwok_tpu_torch.ops import kernels, prng
     from kwok_tpu_torch.ops import tick as T
+    from kwok_tpu_torch.parallel.mesh import pad_rows
 
     t0 = time.perf_counter()
     for name in ("pod-fast", "pod-general+pod-chaos", "node-default-lease"):
@@ -289,6 +367,7 @@ def phase_parity(device):
             assert_soa_equal(f"{label} scatter_rows", ks, ps)
             log(f"parity {label}: tick x50 (fired {fired}), run_ticks_collect K={MACRO_K}, "
                 f"run_ticks K=50 (count {int(kc)}), scatter_rows B={batch[0].shape[0]}: equal")
+            sharded_parity(cset, name, pad_rows(n, MESH_SHARDS), seed, device)
     for seed in (0, 1, 42, 2**31 - 1):
         key = prng.prng_key(seed, device)
         for n in (1, 3, 4_097, 1_000_003):
@@ -553,6 +632,161 @@ def phase_main_path():
     return counts, pod_sim, wide_sim
 
 
+# ------------------------------------------------------------------ phase 3b
+
+
+def sharded_columns(sim):
+    """The simulator's device SoA, every row column in row order on the
+    host, and the clock and key of each shard (the one of an unsharded
+    SoA)."""
+    from kwok_tpu_torch.parallel.mesh import ROW_FIELDS
+
+    _, soa = sim.to_device()
+    if sim.mesh is None:
+        cols = {f: getattr(soa, f).cpu() for f in ROW_FIELDS}
+        clocks = [(int(soa.now), tuple(soa.key.view(torch.int32).tolist()))]
+    else:
+        cols = {f: soa.column(f).to_host() for f in ROW_FIELDS}
+        clocks = [(int(s.now), tuple(s.key.view(torch.int32).tolist())) for s in soa.shards]
+    return cols, clocks
+
+
+def phase_mesh(smi, device):
+    """Phase 3b: the main path's simulators over a row mesh, in lockstep
+    with the unsharded ones; returns the phase's launches and the
+    4-shard pod simulator."""
+    from kwok_tpu_torch import graft_entry
+    from kwok_tpu_torch.engine.simulator import DeviceSimulator
+    from kwok_tpu_torch.ops import tick as T
+    from kwok_tpu_torch.parallel import mesh as M
+    from kwok_tpu_torch.stages import default_node_stages, load_builtin
+
+    t_phase = time.perf_counter()
+    meshes = {
+        "unsharded": None,
+        f"{torch.cuda.device_count()} card(s)": M.make_mesh(torch.cuda.device_count()),
+        f"{MESH_SHARDS} shards of one card": M.make_mesh(devices=[device] * MESH_SHARDS),
+    }
+    sims = {}
+    for name, mesh in meshes.items():
+        pods = DeviceSimulator(load_builtin("pod-general") + load_builtin("pod-chaos"),
+                               capacity=N_PODS, seed=0, mesh=mesh, device=device)
+        pods.admit_bulk(new_pod(), N_PODS)
+        nodes = DeviceSimulator(default_node_stages(lease=True), capacity=N_NODES, seed=1,
+                                mesh=mesh, device=device)
+        nodes.admit_bulk(new_node(), N_NODES)
+        pods.to_device()
+        nodes.to_device()
+        sims[name] = (pods, nodes)
+    caps = {name: (p.capacity, n.capacity) for name, (p, n) in sims.items()}
+    if len(set(caps.values())) != 1:
+        raise AssertionError(f"mesh: capacities differ: {caps}")
+    torch.cuda.synchronize()
+    log(f"mesh: setup {time.perf_counter() - t_phase:.1f} s, meshes "
+        f"{ {name: (str(m) if m else None) for name, m in meshes.items()} }")
+
+    rng = np.random.default_rng(3)
+    perm = rng.permutation(N_PODS)
+    per_macro = {name: [] for name in sims}
+    churn_s = dict.fromkeys(sims, 0.0)
+    fired = dict.fromkeys(sims, 0)
+    churns = deleted = 0
+    T.reset_launches()
+    for m in range(MESH_MACROS):
+        outs = []
+        for name, (pods, nodes) in sims.items():
+            t0 = time.perf_counter()
+            st, t0_ms = pods.tick_many(DT_MS, MACRO_K)
+            nst, _ = nodes.tick_many(DT_MS, MACRO_K)
+            per_macro[name].append(time.perf_counter() - t0)
+            fired[name] += int(np.count_nonzero(st >= 0)) + int(np.count_nonzero(nst >= 0))
+            outs.append((name, st.astype(np.int32), nst.astype(np.int32), t0_ms))
+        base = outs[0]
+        for name, st, nst, t0_ms in outs[1:]:
+            if st.shape != base[1].shape or not np.array_equal(st, base[1]):
+                diff = np.argwhere(st != base[1])[:3].tolist() if st.shape == base[1].shape else []
+                raise AssertionError(f"mesh: macro-tick {m}: pod fired stages of {name} differ "
+                                     f"from {base[0]}, first at [tick, row] {diff}")
+            if not np.array_equal(nst, base[2]) or t0_ms != base[3]:
+                raise AssertionError(f"mesh: macro-tick {m}: node fired stages or clock of "
+                                     f"{name} differ from {base[0]}")
+        deleted += int(np.count_nonzero(np.isin(base[1], np.nonzero(
+            sims["unsharded"][0].cset.stage_delete)[0])))
+        if m % MESH_CHURN_EVERY == MESH_CHURN_EVERY - 1 and m < MESH_MACROS - 1:
+            # phase 3's churn on rows never touched before: released rows
+            # are admitted again, deleted rows are left to their FSM
+            lo = churns * 2 * CHURN
+            released, deleting = perm[lo:lo + CHURN], perm[lo + CHURN:lo + 2 * CHURN]
+            for name, (pods, _) in sims.items():
+                t0 = time.perf_counter()
+                for row in released.tolist():
+                    pods.release(row)
+                at = pods.now_ms + 2_000
+                for row in deleting.tolist():
+                    pods.request_delete(row, at)
+                new_rows = [pods.admit(new_pod(N_PODS + churns * CHURN + i))
+                            for i in range(CHURN)]
+                churn_s[name] += time.perf_counter() - t0
+                if sorted(new_rows) != sorted(released.tolist()):
+                    raise AssertionError(f"mesh: {name}: admits did not reuse the released rows")
+            churns += 1
+    if deleted == 0:
+        raise AssertionError("mesh: no requested delete reached its delete stage")
+    final = {name: (sharded_columns(p), sharded_columns(n)) for name, (p, n) in sims.items()}
+    ref = final["unsharded"]
+    for name, cols in final.items():
+        for kind, (got, want) in zip(("pods", "nodes"), zip(cols, ref)):
+            for f in want[0]:
+                assert_equal(f"mesh: final {kind} soa.{f} of {name}", got[0][f], want[0][f])
+            if set(got[1]) != {want[1][0]}:
+                raise AssertionError(f"mesh: final {kind} clocks of {name}: {got[1]} != {want[1]}")
+    # the macro-ticks right after a churn carry its upload: a scatter of
+    # the touched rows unsharded, a full re-upload on a mesh
+    after = [m for m in range(1, MESH_MACROS) if m % MESH_CHURN_EVERY == 0]
+    line = {name: {
+        "ms_per_macro_tick": sum(t) / MESH_MACROS * 1e3,
+        "median_ms": float(np.median(t)) * 1e3,
+        "after_churn_mean_ms": float(np.mean([t[m] for m in after])) * 1e3,
+        "transitions_per_s": fired[name] / sum(t),
+        "transitions": fired[name],
+        "churn_s": churn_s[name],
+    } for name, t in per_macro.items()}
+    log(f"mesh: {MESH_MACROS} pod+node macro-ticks of K={MACRO_K} in lockstep, {churns} churns "
+        f"of {CHURN} rows, {deleted} delete stages fired; fired stages equal on every tick and "
+        f"final SoA equal across {list(sims)}  [{smi}]")
+    log("mesh: " + json.dumps(line))
+
+    # the bench loop over the 4 shards against run_ticks on the same state
+    pods4 = sims[f"{MESH_SHARDS} shards of one card"][0]
+    mesh4 = pods4.mesh
+    params4, live4 = pods4.to_device()
+    params1, live1 = sims["unsharded"][0].to_device()
+    ks, ps = clone_sharded(live4), clone_soa(live1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ks, kc = M.sharded_run_ticks(mesh4, DT_MS, BENCH_TICKS)(params4, ks)
+    n_fired = int(kc)
+    w = time.perf_counter() - t0
+    ps, pc = T.run_ticks(params1, ps, DT_MS, BENCH_TICKS)
+    assert_equal("mesh: sharded_run_ticks count against run_ticks", kc, pc)
+    assert_sharded_equal("mesh: sharded_run_ticks against run_ticks", ks, ps)
+    log(f"mesh: sharded_run_ticks window: {BENCH_TICKS} ticks x {N_PODS} pods over "
+        f"{MESH_SHARDS} shards in {w * 1e3:.2f} ms: {n_fired / w:.0f} transitions/s "
+        f"({n_fired} fired, equal to run_ticks)  [{smi}]")
+    del ks, ps
+
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(MESH_SHARDS, devices=[device] * MESH_SHARDS, n_rows=DRYRUN_ROWS)
+    log(f"mesh: dryrun_multichip over {MESH_SHARDS} shards of the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    counts = T.launches()
+    log(f"mesh: launches {counts}; phase 3b took {time.perf_counter() - t_phase:.1f} s")
+    missing = [k for k in ("sharded_tick", "sharded_run_ticks") if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the mesh path: {missing}")
+    return counts, pods4
+
+
 # ------------------------------------------------------------------ phase 4
 
 
@@ -623,9 +857,10 @@ def tick_bound(params, n, ticks, rematches, out_bytes):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def phase_measure(counts, pod_sim, wide_sim, smi):
-    from kwok_tpu_torch.ops import kernels
+def phase_measure(counts, pod_sim, wide_sim, mesh_sim, smi):
+    from kwok_tpu_torch.ops import kernels, prng
     from kwok_tpu_torch.ops import tick as T
+    from kwok_tpu_torch.parallel import mesh as M
 
     entries = []
     src_tick = "kwok_tpu_torch/csrc/tick.cu"
@@ -760,7 +995,74 @@ def phase_measure(counts, pod_sim, wide_sim, smi):
           f"({due_total / reps:.1f} due per {DT_MS} ms tick; the facade's lane)",
           "kwok_tpu_torch/csrc/lease.cu", "kwok_tpu/ops/tick.py:305", ms, dev_ms, plain_ms,
           (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"), err)
-    order = ["tick", "run_ticks_collect", "run_ticks", "scatter_rows", "lease_tick"]
+
+    # sharded_tick at the mesh path's shape: 1M pods over 4 shards of the card
+    mparams, mlive = mesh_sim.to_device()
+    mesh = mesh_sim.mesh
+    rematch0 = sum(int(s.rematch.sum()) for s in mlive.shards)
+    step = M.sharded_tick(mesh, DT_MS)
+    ks, ps = clone_sharded(mlive), clone_sharded(mlive)
+    ks, ko = step(mparams, ks)
+    ps, po = M._sharded_tick_impl(mesh, mparams, ps, DT_MS)
+    pairs = [(ko.fired_count, po.fired_count)]
+    for f in ("fired", "fired_stage", "deleted"):
+        pairs.append((getattr(ko, f).to_host(), getattr(po, f).to_host()))
+    pairs += [(ks.column(f).to_host(), ps.column(f).to_host()) for f in M.ROW_FIELDS]
+    for i, (got, want) in enumerate(pairs):
+        assert_equal(f"main-shape sharded_tick output {i}", got, want)
+    err = max_abs_err(pairs)
+    sharded_one = lambda s: step(mparams, s)[0]  # noqa: E731
+    ms = chained_ms(sharded_one, clone_sharded(mlive), 20)
+    dev_ms = device_ms(chained(sharded_one, clone_sharded(mlive)), 20)
+    plain_ms = chained_ms(lambda s: M._sharded_tick_impl(mesh, mparams, s, DT_MS)[0],
+                          clone_sharded(mlive), 3)
+    entry("sharded_tick", f"{N_PODS:,} pod rows over {MESH_SHARDS} shards of one card, one "
+          "tick (the mesh path's per-tick call)",
+          src_tick, "kwok_tpu/parallel/mesh.py:94", ms, dev_ms, plain_ms,
+          tick_bound(mparams[0], N_PODS, 1, int(ko.fired_count) + rematch0, 6 * N_PODS + 4), err)
+
+    # sharded_run_ticks at the bench window's shape over the same shards
+    run = M.sharded_run_ticks(mesh, DT_MS, BENCH_TICKS)
+    ks, ps = clone_sharded(mlive), clone_sharded(mlive)
+    ks, kc = run(mparams, ks)
+    t0 = time.perf_counter()
+    ps, pc = M._sharded_run_ticks_impl(mesh, mparams, ps, DT_MS, BENCH_TICKS)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assert_equal("main-shape sharded_run_ticks count", kc, pc)
+    pairs = [(kc, pc)] + [(ks.column(f).to_host(), ps.column(f).to_host()) for f in M.ROW_FIELDS]
+    for i, (got, want) in enumerate(pairs):
+        assert_equal(f"main-shape sharded_run_ticks output {i}", got, want)
+    err = max_abs_err(pairs)
+    window = lambda s: run(mparams, s)[0]  # noqa: E731
+    ms = chained_ms(window, clone_sharded(mlive), 3)
+    dev_ms = device_ms(chained(window, clone_sharded(mlive)), 3)
+    entry("sharded_run_ticks", f"{N_PODS:,} pod rows over {MESH_SHARDS} shards of one card, "
+          f"K={BENCH_TICKS} (the bench-style window)",
+          src_tick, "kwok_tpu/parallel/mesh.py:116", ms, dev_ms, plain_ms,
+          tick_bound(mparams[0], N_PODS, BENCH_TICKS, int(kc) + rematch0, 4), err)
+
+    # threefry, the device functions every tick and lease kernel inlines,
+    # checked alone at one draw per pod row: split(key, n) and uniform(key, n)
+    key = prng.prng_key(0, live.features.device)
+    kpairs, ku = kernels.threefry_draws(key, N_PODS)
+    pairs = [(kpairs, prng.split(key, N_PODS)),
+             (ku.view(torch.int32), prng.uniform(key, N_PODS).view(torch.int32))]
+    for (got, want), f in zip(pairs, ("split", "uniform")):
+        assert_equal(f"main-shape threefry {f}", got, want)
+    err = max_abs_err(pairs)
+    ms = cuda_ms(lambda: kernels.threefry_draws(key, N_PODS), 50)
+    dev_ms = device_ms(lambda: kernels.threefry_draws(key, N_PODS), 50)
+    plain_ms = cuda_ms(lambda: (prng.split(key, N_PODS), prng.uniform(key, N_PODS)), 5)
+    nbytes = N_PODS * (8 + 4) + 8  # the [n, 2] keys and the [n] floats out; the key in
+    ops = N_PODS * (2 * DRAW_OPS - 3)  # a split is one threefry, a uniform one more and 3
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
+    entry("threefry", f"{N_PODS:,} split keys and uniforms, checked alone; inside the tick "
+          "and lease kernels it runs inline, so its launches are theirs",
+          "kwok_tpu_torch/csrc/threefry.cuh", "kwok_tpu/ops/tick.py:144", ms, dev_ms, plain_ms,
+          (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"), err)
+    order = ["threefry", "tick", "run_ticks_collect", "run_ticks", "scatter_rows", "lease_tick",
+             "sharded_tick", "sharded_run_ticks"]
     return sorted(entries, key=lambda e: order.index(e["name"]))
 
 
@@ -869,9 +1171,11 @@ def p99(values) -> float:
     return v[int(0.99 * (len(v) - 1))] if v else float("nan")
 
 
-def phase_facade(smi, device):
+def phase_facade(smi, device, t_script):
     """Phase 5: ``Controller(backend="device")`` on a full store, started
-    as the daemon starts it; returns the launches of the phase."""
+    as the daemon starts it; returns the launches of the phase.  Warming
+    must end by ``t_script + SCRIPT_BUDGET_S`` less the window and
+    ``FACADE_STOP_S``."""
     import gc
 
     from kwok_tpu_torch.api.config import KwokConfiguration
@@ -883,7 +1187,6 @@ def phase_facade(smi, device):
     from kwok_tpu_torch.stages import default_node_stages, load_builtin
 
     n_pods, n_nodes, window_s = FACADE_PODS, N_NODES, FACADE_WINDOW_S
-    deadline_s = FACADE_DEADLINE_S
     t_phase = time.perf_counter()
     store = ResourceStore()
     for lo in range(0, n_nodes, 10_000):
@@ -924,7 +1227,9 @@ def phase_facade(smi, device):
 
         # admission of every row, every held lease on the lane, and the
         # first transition of every row
-        deadline = t_start + deadline_s
+        deadline = t_script + SCRIPT_BUDGET_S - window_s - FACADE_STOP_S
+        deadline_s = deadline - t_start
+        log(f"facade: warming may take {deadline_s:.0f} s")
         admitted_at = started = None
         last_log = time.perf_counter()
         while True:
@@ -935,7 +1240,8 @@ def phase_facade(smi, device):
                 raise AssertionError(
                     f"facade: not warm after {deadline_s:.0f} s: {len(pods._rows)}/{n_pods} pods "
                     f"and {len(nodes._rows)}/{n_nodes} nodes admitted, {len(lane)} leases on "
-                    f"the lane, {pods.transitions} pod transitions")
+                    f"the lane, {pods.transitions} pod and {nodes.transitions} node "
+                    f"transitions, rows started {(rows_started(pods), rows_started(nodes))}")
             if admitted_at is None and len(pods._rows) == n_pods and len(nodes._rows) == n_nodes:
                 admitted_at = now
                 log(f"facade: admitted {n_pods} pods and {n_nodes} nodes in "
@@ -1025,13 +1331,23 @@ def main() -> int:
     device = torch.device("cuda")
     phase_parity(device)
     counts, pod_sim, wide_sim = phase_main_path()
-    kernels_line = phase_measure(counts, pod_sim, wide_sim, smi)
-    del pod_sim, wide_sim
+    mesh_counts, mesh_sim = phase_mesh(smi, device)
+    counts.update({k: mesh_counts[k] for k in ("sharded_tick", "sharded_run_ticks")})
+    kernels_line = phase_measure(counts, pod_sim, wide_sim, mesh_sim, smi)
+    del pod_sim, wide_sim, mesh_sim
     torch.cuda.empty_cache()
-    facade_counts = phase_facade(smi, device)
+    facade_counts = phase_facade(smi, device, t0)
     for e in kernels_line:
         if e["name"] == "lease_tick":
             e["launches"] = facade_counts["lease_tick"]
+    # threefry runs inline in every kernel but scatter_rows
+    inlined = [e["launches"] for e in kernels_line if e["name"] not in ("threefry", "scatter_rows")]
+    for e in kernels_line:
+        if e["name"] == "threefry":
+            e["launches"] = sum(inlined)
+    never = [e["name"] for e in kernels_line if not e["launches"]]
+    if never:
+        raise AssertionError(f"kernels never launched on their path: {never}")
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"kernels": kernels_line}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,8 +10,9 @@ lease heartbeats), anything else a generic StageController.
 
 Port of ``kwok_tpu/controllers/controller.py``: the device backend
 builds the port's ``DeviceStagePlayer`` and ``DeviceLeaseLane`` on
-``device`` (the card unless the caller names one).  Row sharding over
-several devices is not ported yet: ``device_mesh_devices > 1`` raises.
+``device`` (the card unless the caller names one).  With
+``device_mesh_devices > 1`` the players shard their rows over that many
+distinct cards, or, with ``device="cpu"``, over that many CPU shards.
 """
 
 from __future__ import annotations
@@ -80,19 +81,23 @@ class Controller:
         #: shared device mesh for every device player; built and
         #: validated ONCE here so an oversubscribed mesh fails loudly at
         #: startup instead of killing the Stage-CR manage thread later
-        self._device_mesh = None
-        if self.conf.backend == "device" and self.conf.device_mesh_devices > 1:
-            raise NotImplementedError(
-                "row sharding over several GPUs is not ported yet "
-                "(ROADMAP queue 1 item 8, parallel/mesh.py): "
-                f"device_mesh_devices={self.conf.device_mesh_devices}"
-            )
         #: torch device of every device player and lease lane: the card
         #: unless the caller names one (resolved, and refused without a
         #: card, only when the device backend is asked for)
         self.device = (
             resolve_device(device) if self.conf.backend == "device" else device
         )
+        self._device_mesh = None
+        if self.conf.backend == "device" and self.conf.device_mesh_devices > 1:
+            from kwok_tpu_torch.parallel.mesh import make_mesh
+
+            n = self.conf.device_mesh_devices
+            # CPU shards are the analog of XLA's fake host devices
+            self._device_mesh = (
+                make_mesh(devices=[self.device] * n)
+                if self.device.type == "cpu"
+                else make_mesh(n)
+            )
 
         self.nodes: Optional[NodeController] = None
         self.pods: Optional[PodController] = None

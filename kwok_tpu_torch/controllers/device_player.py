@@ -622,7 +622,7 @@ class DeviceStagePlayer:
         switching a run loop between the two flavors never silently
         stops heartbeats."""
         dt = dt_ms if dt_ms is not None else self.tick_ms
-        if self.sim.num_stages_over_int8():
+        if self.sim.mesh is not None or self.sim.num_stages_over_int8():
             # step_batch flushes any in-flight batch first (ordering)
             return self.step_batch(dt, n_ticks)
         base = (self.t_device, self.t_store, self.t_host, self.t_build)

@@ -336,7 +336,8 @@ class NodeLeaseController:
             }
             for n in held
         ]
-        failed = [n for n in names if n not in set(held)]
+        held_set = set(held)
+        failed = [n for n in names if n not in held_set]
         if hasattr(self.store, "bulk"):
             try:
                 results = self.store.bulk(ops)

@@ -6,7 +6,12 @@
 //   MODE_SINGLE  tick               (:217)      one tick, per-row outputs
 //   MODE_COLLECT run_ticks_collect  (:222-243)  K ticks, [K, N] int8 stages
 //   MODE_COUNT   run_ticks          (:308-325)  K ticks, total fired count
-// The plain PyTorch versions are in kwok_tpu_torch/ops/tick.py.
+// and, launched once per row shard with the shard's global row offset,
+// the two jitted functions of kwok_tpu/parallel/mesh.py:
+//   MODE_SINGLE  sharded_tick       (:94-113)
+//   MODE_COUNT   sharded_run_ticks  (:116-135)
+// The plain PyTorch versions are in kwok_tpu_torch/ops/tick.py and
+// kwok_tpu_torch/parallel/mesh.py.
 //
 // Design.  Rows never interact, so one thread owns one row for all K
 // ticks: the row's scalars live in registers and its [C] feature row in
@@ -18,7 +23,9 @@
 // Matching, weighted choice and the two threefry draws run only for
 // rows that rematch this tick: the reference computes them for every
 // row and discards the rest, and a row's draws depend on nothing but
-// the key and its index, so skipping them changes no bit.
+// the key and its index, so skipping them changes no bit.  That index is
+// global: a shard passes the index of its first row as row_offset, so a
+// sharded run draws exactly what an unsharded one does.
 //
 // The key chain (split(key, 3) each tick) does not depend on the data.
 // A one-thread kernel computes it first into a [K, 4] schedule and
@@ -100,6 +107,7 @@ struct TickArgs {
   int8_t* stages;        // [K, N]  MODE_COLLECT
   int32_t* count;        // []      MODE_SINGLE and MODE_COUNT, zeroed by the caller
   int64_t n;
+  int64_t row_offset;  // global index of row 0 (a shard's first row)
   int32_t S, KC, C, SIG, OVC;
   int32_t dt_ms, num_ticks, mode;
 };
@@ -223,7 +231,7 @@ __global__ void __launch_bounds__(BLOCK) tick_rows_kernel(TickArgs a) {
     bool act = a.active[row] != 0;
     bool rm = a.rematch[row] != 0;
     int32_t now = *a.now_in;
-    const uint32_t urow = (uint32_t)row;
+    const uint32_t urow = (uint32_t)(a.row_offset + row);
 
     for (int t = 0; t < a.num_ticks; ++t) {
       now = wadd(now, a.dt_ms);
@@ -378,7 +386,8 @@ int kwok_tick_rows(const TickArgs* args, void* stream) {
   const TickArgs a = *args;
   cudaStream_t s = (cudaStream_t)stream;
   if (a.num_ticks <= 0 || a.n <= 0 || a.S <= 0 || a.KC <= 0 || a.C <= 0 ||
-      a.SIG <= 0 || a.OVC <= 0 || a.n > 0xFFFFFFFFll) {
+      a.SIG <= 0 || a.OVC <= 0 || a.row_offset < 0 ||
+      a.row_offset + a.n > 0x100000000ll) {
     return (int)cudaErrorInvalidValue;
   }
   key_schedule_kernel<<<1, 1, 0, s>>>(a);

@@ -3,7 +3,9 @@
 Port of ``kwok_tpu/engine/simulator.py`` to PyTorch: the SoA lives in
 torch tensors on a CUDA device (or on the CPU when the caller passes
 ``device="cpu"``, where the kernels' plain versions run), and the tick
-kernels are those of ``kwok_tpu_torch/ops/tick.py``.
+kernels are those of ``kwok_tpu_torch/ops/tick.py``; with a ``mesh``,
+its rows are split over the mesh's devices and the tick is
+``parallel/mesh.py``'s ``sharded_tick``.
 
 Owns the device-resident SoA and the host-side object mirror. The
 division of labor mirrors the Go<->device bridge mandated by the north
@@ -47,6 +49,14 @@ from kwok_tpu_torch.ops.tick import (
     run_ticks_collect,
     scatter_rows,
     tick,
+)
+from kwok_tpu_torch.parallel.mesh import (
+    ROW_FIELDS,
+    Mesh,
+    pad_rows,
+    replicate,
+    shard_rows,
+    sharded_tick,
 )
 from kwok_tpu_torch.utils.patch import apply_patch
 
@@ -116,13 +126,23 @@ class DeviceSimulator:
         mesh=None,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "row sharding over several GPUs is not ported yet "
-                "(ROADMAP queue 1 item 8, parallel/mesh.py)"
-            )
-        #: torch device of the SoA: the card unless the caller names one
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+        #: optional Mesh: rows sharded across its devices, stage tensors
+        #: replicated.  The tick is row-parallel, so the only value that
+        #: crosses shards is the fired count.
+        self.mesh = mesh
+        self._n_shards = 1 if mesh is None else mesh.size
+        self._sharded_ticks: Dict[int, Callable] = {}
+        #: torch device of the SoA (of its first shard on a mesh): the
+        #: card unless the caller or the mesh names one
+        if mesh is None:
+            self.device = resolve_device(device)
+        else:
+            self.device = mesh.local_devices[0]
+            if device is not None and torch.device(device).type != self.device.type:
+                raise ValueError(f"device {device} is not the mesh's kind: {mesh}")
+            capacity = pad_rows(capacity, self._n_shards)
         self.cset = CompiledStageSet(stages)
         self.capacity = capacity
         self.epoch = epoch
@@ -226,6 +246,7 @@ class DeviceSimulator:
         host values reach the device as part of the next tick's batched
         scatter (see _flush_pending) — no full re-upload."""
         obj = to_json_standard(obj)
+        self._pre_mutate()
         if self._free:
             row = self._free.pop()
         else:
@@ -279,11 +300,19 @@ class DeviceSimulator:
         self.rematch[row] = True
         self.del_ts[row] = self.cset.deletion_ts_ms(obj, self.epoch)
 
+    def _pre_mutate(self) -> None:
+        """Mesh path only: pull device progress BEFORE host row writes
+        (the full re-upload on next to_device would otherwise clobber
+        them on sync).  The single-device path instead scatters the
+        touched rows after the writes (_mark_pending)."""
+        if self._soa is not None and self.mesh is not None:
+            self._invalidate_device()
+
     def _mark_pending(self, row: int) -> None:
         """Record a host-mutated row for the next batched device scatter.
         With no live device SoA the next to_device() uploads everything
-        anyway."""
-        if self._soa is not None:
+        anyway; the mesh path keeps the full re-upload."""
+        if self._soa is not None and self.mesh is None:
             self._pending.add(row)
 
     def _flush_pending(self) -> None:
@@ -338,6 +367,7 @@ class DeviceSimulator:
         recycled by the next admit."""
         if self.objects[row] is None and not self.active[row]:
             return
+        self._pre_mutate()
         self.objects[row] = None
         self.active[row] = False
         self.stage[row] = IDLE
@@ -351,7 +381,7 @@ class DeviceSimulator:
         """Grow the SoA to hold at least n rows (amortized doubling)."""
         if n <= self.capacity:
             return
-        new_cap = max(self.capacity * 2, n, 64)
+        new_cap = pad_rows(max(self.capacity * 2, n, 64), self._n_shards)
         self._invalidate_device()
         grow = new_cap - self.capacity
 
@@ -394,6 +424,7 @@ class DeviceSimulator:
         delay, replacing the old queue entry (pod_controller.go:205-214
         resourceVersion dedup + addStageJob), so a reset, not a carried
         timer, is the parity-correct behavior."""
+        self._pre_mutate()
         obj = self.objects[row]
         sig, ovc, feats = self._classify(obj)
         self.features[row] = feats
@@ -452,35 +483,41 @@ class DeviceSimulator:
         updates the SoA in place, and the host mirror must not move)."""
         return torch.from_numpy(np.array(arr)).to(self.device)
 
-    def to_device(self) -> Tuple[TickParams, SoA]:
+    def to_device(self):
+        """``(params, soa)`` on the device, uploading what is stale.  On
+        a mesh: params replicated per shard and a ``ShardedSoA``."""
         if self._params is None or self._params_version != self.cset.version:
             self._params = params_from_compiled(self.cset, self.device)
+            if self.mesh is not None:
+                self._params = replicate(self._params, self.mesh)
             self._params_version = self.cset.version
         if self._soa is not None:
             self._flush_pending()
         if self._soa is None:
-            self._soa = SoA(
-                features=self._upload(self.features),
-                sig=self._upload(self.sig),
-                ovc=self._upload(self.ovc),
-                stage=self._upload(self.stage),
-                fire_at=self._upload(self.fire_at),
-                active=self._upload(self.active),
-                rematch=self._upload(self.rematch),
-                del_ts=self._upload(self.del_ts),
-                now=(
-                    self._dev_now
-                    if self._dev_now is not None
-                    else torch.zeros((), dtype=torch.int32, device=self.device)
-                ),
-                key=(
-                    self._dev_key
-                    if self._dev_key is not None
-                    else prng_key(self._seed, self.device)
-                ),
+            now = (
+                self._dev_now
+                if self._dev_now is not None
+                else torch.zeros((), dtype=torch.int32, device=self.device)
             )
+            key = self._dev_key if self._dev_key is not None else prng_key(self._seed, self.device)
+            if self.mesh is None:
+                self._soa = SoA(
+                    **{f: self._upload(getattr(self, f)) for f in ROW_FIELDS}, now=now, key=key
+                )
+            else:
+                # shard_rows copies each block onto its shard's device
+                host = {f: torch.from_numpy(getattr(self, f)) for f in ROW_FIELDS}
+                self._soa = shard_rows(SoA(**host, now=now, key=key), self.mesh)
             self._rematch_pending = bool(self.rematch.any())
         return self._params, self._soa
+
+    def _tick_fn(self, dt_ms: int):
+        if self.mesh is None:
+            return lambda p, s: tick(p, s, dt_ms)
+        fn = self._sharded_ticks.get(dt_ms)
+        if fn is None:
+            fn = self._sharded_ticks[dt_ms] = sharded_tick(self.mesh, dt_ms)
+        return fn
 
     def tick_many(self, dt_ms: int, n_ticks: int) -> Tuple[np.ndarray, int]:
         """Advance ``n_ticks`` device ticks; returns (fired_stage [K, N]
@@ -494,8 +531,11 @@ class DeviceSimulator:
         only marks it stale; the actual full download happens on the
         next _ensure_synced.  Steady-state churn with the fast drain
         moves only this [K, N] int8 across the boundary — "only dirty
-        rows come back" at 1M rows."""
-        if self.num_stages_over_int8():
+        rows come back" at 1M rows.
+
+        On a mesh, and for stage sets past int8, it ticks one tick at a
+        time and returns int32 [K, N], every row in order."""
+        if self.mesh is not None or self.num_stages_over_int8():
             if self.now_ms >= REBASE_AT_MS:
                 self._rebase()
             t0_ms = self._now_host
@@ -504,8 +544,9 @@ class DeviceSimulator:
             # because int8 cannot hold >126 stage indices
             outs = []
             for _ in range(n_ticks):
-                soa, out = tick(params, soa, dt_ms)
-                outs.append(out.fired_stage.cpu().numpy())
+                soa, out = self._tick_fn(dt_ms)(params, soa)
+                fired = out.fired_stage
+                outs.append((fired.cpu() if self.mesh is None else fired.to_host()).numpy())
             self._soa = soa
             stages_np = np.stack(outs) if outs else np.empty((0, 0), np.int32)
             self._now_host = t0_ms + dt_ms * n_ticks
@@ -525,10 +566,13 @@ class DeviceSimulator:
         with host work (drain of the previous macro-tick) and fetches it
         (``.cpu()``) when ready.  Each call returns a fresh tensor, so a
         later dispatch never overwrites a batch the caller still reads.
-        Not for >int8 stage sets (the caller uses tick_many there);
-        tick_many's int8 branch is this + the blocking fetch."""
-        if self.num_stages_over_int8():
-            raise ValueError("tick_many_async needs a stage set of at most 126 stages")
+        Single-device path only, and not for >int8 stage sets (the
+        caller uses tick_many there); tick_many's int8 branch is this +
+        the blocking fetch."""
+        if self.mesh is not None or self.num_stages_over_int8():
+            raise ValueError(
+                "tick_many_async is the single-device path for stage sets of at most 126 stages"
+            )
         if self.now_ms >= REBASE_AT_MS:
             self._rebase()
         t0_ms = self._now_host
@@ -593,18 +637,24 @@ class DeviceSimulator:
         if self._host_synced:
             return
         soa = self._soa
+
         # copies, never views: on the CPU .numpy() shares the SoA's memory,
         # which the tick updates in place and the host mutates on
-        # refresh_row/admit.
-        self.stage = soa.stage.cpu().numpy().copy()
-        self.fire_at = soa.fire_at.cpu().numpy().copy()
-        self.active = soa.active.cpu().numpy().copy()
-        self.features = soa.features.cpu().numpy().copy()
+        # refresh_row/admit.  A mesh's shards are read in row order.
+        def column(name: str) -> np.ndarray:
+            if self.mesh is not None:
+                return soa.column(name).to_host().numpy()
+            return getattr(soa, name).cpu().numpy().copy()
+
+        self.stage = column("stage")
+        self.fire_at = column("fire_at")
+        self.active = column("active")
+        self.features = column("features")
         # the true device value, NOT zeros: rows scattered with
         # rematch=True that have not ticked yet must keep the flag
         # across a re-upload or they never arm (found as stuck rows
         # admitted right before a capacity growth)
-        self.rematch = soa.rematch.cpu().numpy().copy()
+        self.rematch = column("rematch")
         self._host_synced = True
 
     # ------------------------------------------------------------- materialization

@@ -126,7 +126,7 @@ TickArgs = _struct("TickArgs", [
         "features", "sig", "ovc", "stage", "fire_at", "active", "rematch", "del_ts",
         "now_in", "key_in", "now_out", "key_out", "sched",
         "fired", "fired_stage", "deleted", "stages", "count")],
-    ("n", ctypes.c_int64),
+    ("n", ctypes.c_int64), ("row_offset", ctypes.c_int64),
     *[(f, ctypes.c_int32) for f in (
         "S", "KC", "C", "SIG", "OVC", "dt_ms", "num_ticks", "mode")],
 ])
@@ -169,13 +169,14 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int):
+def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int, row_offset: int = 0):
     """Launch the key schedule and the row kernel of csrc/tick.cu.
 
     Updates the SoA's row columns in place and returns ``(now, key,
     outs)``: the advanced clock and key as fresh tensors, and ``outs``,
     the mode's outputs (``(fired, fired_stage, deleted, count)``,
-    ``stages [K, N] int8`` or ``count``)."""
+    ``stages [K, N] int8`` or ``count``).  ``row_offset`` is the global
+    index of the SoA's first row, which the rows' draws count from."""
     dev = soa.features.device
     if dev.type != "cuda":
         raise ValueError(f"tick_rows needs CUDA tensors, got {dev}")
@@ -188,6 +189,8 @@ def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int):
     i32, b = torch.int32, torch.bool
     S, KC = params.cond_col.shape
     N, C = soa.features.shape
+    if row_offset < 0 or row_offset + N > 2**32:
+        raise ValueError(f"rows [{row_offset}, {row_offset + N}) do not fit uint32 counters")
     SIG, OVC = params.eff_mode.shape[0], params.ov_w.shape[0]
     a = TickArgs()
     for f in ("cond_col", "cond_mask"):
@@ -229,7 +232,7 @@ def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int):
         a.count = outs.data_ptr()
     else:
         raise ValueError(f"unknown mode {mode}")
-    a.n, a.S, a.KC, a.C, a.SIG, a.OVC = N, S, KC, C, SIG, OVC
+    a.n, a.row_offset, a.S, a.KC, a.C, a.SIG, a.OVC = N, row_offset, S, KC, C, SIG, OVC
     a.dt_ms, a.num_ticks, a.mode = int(dt_ms), int(num_ticks), mode
     lib = _lib("tick.cu")
     with torch.cuda.device(dev):

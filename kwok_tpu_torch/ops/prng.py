@@ -13,7 +13,9 @@ Plain PyTorch version of the generator the tick kernel draws from
   float in [1, 2) and subtracts 1.
 
 So a row's draw depends only on the key and the row's index, which is
-what lets the kernel draw in registers, one thread per row.
+what lets the kernel draw in registers, one thread per row, and what
+lets a shard of rows draw its own: ``uniform(key, n, offset)`` is
+``uniform(key, offset + n)[offset:]``.
 
 torch has no uint32 arithmetic (and few uint32 ops of any kind on
 CUDA), so uint32 tensors are only ever reinterpreted with ``view``:
@@ -71,8 +73,10 @@ def _as_uint32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32).view(torch.uint32)
 
 
-def _counter(n: int, device) -> torch.Tensor:
-    return torch.arange(n, dtype=torch.int64, device=device)
+def _counter(n: int, device, offset: int = 0) -> torch.Tensor:
+    if offset < 0 or offset + n > 2**32:
+        raise ValueError(f"counters [{offset}, {offset + n}) do not fit uint32")
+    return torch.arange(offset, offset + n, dtype=torch.int64, device=device)
 
 
 def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
@@ -83,16 +87,17 @@ def split(key: torch.Tensor, n: int = 2) -> torch.Tensor:
     return _as_uint32(torch.stack([y0, y1], dim=1))
 
 
-def bits(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.bits(key, (n,))`` as int64 words in [0, 2**32)."""
+def bits(key: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """``jax.random.bits(key, (offset + n,))[offset:]`` as int64 words in
+    [0, 2**32)."""
     k0, k1 = _words(key)
-    cnt = _counter(n, key.device)
+    cnt = _counter(n, key.device, offset)
     y0, y1 = threefry2x32(k0, k1, torch.zeros_like(cnt), cnt)
     return y0 ^ y1
 
 
-def uniform(key: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,))``: float32 in [0, 1)."""
-    b = (bits(key, n) >> 9) | 0x3F800000
+def uniform(key: torch.Tensor, n: int, offset: int = 0) -> torch.Tensor:
+    """``jax.random.uniform(key, (offset + n,))[offset:]``: float32 in [0, 1)."""
+    b = (bits(key, n, offset) >> 9) | 0x3F800000
     f = b.to(torch.int32).view(torch.float32) - 1.0
     return torch.clamp_min(f, 0.0)

@@ -22,7 +22,8 @@ Each public function (``tick``, ``run_ticks_collect``, ``run_ticks``,
 kernel (``csrc/tick.cu``, ``csrc/scatter.cu``, ``csrc/lease.cu``) for
 tensors on a CUDA device;
 any other device raises.  Each counts its kernel launches in its
-``launches`` attribute.
+``launches`` attribute; ``launches()`` also reads the row-sharded
+wrappers of ``parallel/mesh.py``.
 
 Where the reference donates the SoA to XLA, the port updates the SoA's
 row columns in place: the returned SoA holds the same column tensors
@@ -150,9 +151,13 @@ def _weighted_choice(
     return torch.where(any_match, choice, IDLE), any_match
 
 
-def _tick_impl(params: TickParams, soa: SoA, dt_ms: int) -> Tuple[SoA, TickOut]:
+def _tick_impl(
+    params: TickParams, soa: SoA, dt_ms: int, row_offset: int = 0
+) -> Tuple[SoA, TickOut]:
     """Advance virtual time by dt_ms and run one transition pass.
-    Updates the SoA's row columns in place."""
+    Updates the SoA's row columns in place.  ``row_offset`` is the global
+    index of the SoA's first row when it is one shard of a larger SoA:
+    a row draws with its global index."""
     S = params.w_static.shape[0]
     now = soa.now + dt_ms
     keys = prng.split(soa.key, 3)
@@ -181,7 +186,7 @@ def _tick_impl(params: TickParams, soa: SoA, dt_ms: int) -> Tuple[SoA, TickOut]:
     match = match_stages(params, features)
     w_over = params.ov_w[ovc]  # [N, S]
     weights = torch.where(w_over != SENTINEL, w_over, params.w_static[None, :])
-    u = prng.uniform(k_choice, N)
+    u = prng.uniform(k_choice, N, row_offset)
     new_stage, any_match = _weighted_choice(match, weights, u)
 
     # 5. timers: delay + jitter for the chosen stage
@@ -197,7 +202,7 @@ def _tick_impl(params: TickParams, soa: SoA, dt_ms: int) -> Tuple[SoA, TickOut]:
     j = torch.where(params.j_from_del_ts[ns_c] & has_dl, soa.del_ts - now, j)
     has_j = params.has_jitter[ns_c] & (j != SENTINEL)
 
-    uj = prng.uniform(k_jitter, N)
+    uj = prng.uniform(k_jitter, N, row_offset)
     span = torch.clamp_min(j - d, 0)
     jittered = d + (uj * span.to(torch.float32)).to(torch.int32)
     delay = torch.where(has_j, torch.where(j < d, j, jittered), d)
@@ -241,12 +246,12 @@ def _run_ticks_collect_impl(
 
 
 def _run_ticks_impl(
-    params: TickParams, soa: SoA, dt_ms: int, num_ticks: int
+    params: TickParams, soa: SoA, dt_ms: int, num_ticks: int, row_offset: int = 0
 ) -> Tuple[SoA, torch.Tensor]:
     """Multi-tick loop (bench path): returns the total fires."""
     count = torch.zeros((), dtype=torch.int32, device=soa.features.device)
     for _ in range(num_ticks):
-        soa, out = _tick_impl(params, soa, dt_ms)
+        soa, out = _tick_impl(params, soa, dt_ms, row_offset)
         count = count + out.fired_count
     return soa, count
 
@@ -402,15 +407,24 @@ run_ticks.launches = 0
 scatter_rows.launches = 0
 lease_tick.launches = 0
 
-#: the kernel wrappers, each with its ``launches`` count
+#: the kernel wrappers of this module, each with its ``launches`` count
 KERNEL_WRAPPERS = (tick, run_ticks_collect, run_ticks, scatter_rows, lease_tick)
 
 
+def kernel_wrappers():
+    """This module's wrappers and the row-sharded ones of
+    ``parallel/mesh.py``, which launch csrc/tick.cu once per shard."""
+    # imported here: parallel/mesh.py imports this module
+    from kwok_tpu_torch.parallel import mesh
+
+    return KERNEL_WRAPPERS + (mesh.sharded_tick, mesh.sharded_run_ticks)
+
+
 def reset_launches() -> None:
-    for fn in KERNEL_WRAPPERS:
+    for fn in kernel_wrappers():
         fn.launches = 0
 
 
 def launches() -> Dict[str, int]:
-    return {fn.__name__: fn.launches for fn in KERNEL_WRAPPERS}
+    return {fn.__name__: fn.launches for fn in kernel_wrappers()}
 

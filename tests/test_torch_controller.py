@@ -443,12 +443,25 @@ def test_fast_drain_notices_interleaved_external_write():
 
 
 def test_mesh_is_refused_until_ported():
-    with pytest.raises(NotImplementedError, match="device_mesh_devices=2"):
-        Controller(
-            ResourceStore(),
-            KwokConfiguration(backend="device", device_mesh_devices=2),
-            device="cpu",
-        )
+    """device_mesh_devices asks for that many distinct cards, and is
+    refused where there are fewer; with device="cpu" it takes that many
+    CPU shards."""
+    import torch
+
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(ValueError, match="mesh wants 2 devices"):
+            Controller(
+                ResourceStore(),
+                KwokConfiguration(backend="device", device_mesh_devices=2),
+                device="cuda",
+            )
+    ctr = Controller(
+        ResourceStore(),
+        KwokConfiguration(backend="device", device_mesh_devices=2),
+        device="cpu",
+    )
+    assert ctr._device_mesh.size == 2
+    assert {str(d) for d in ctr._device_mesh.devices} == {"cpu"}
 
 
 def test_host_backend_needs_no_device():

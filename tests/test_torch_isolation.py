@@ -29,6 +29,9 @@ from kwok_tpu_torch.controllers.node_lease_controller import NodeLeaseController
 from kwok_tpu_torch.engine.simulator import DeviceSimulator
 from kwok_tpu_torch.ops import prng
 from kwok_tpu_torch.ops import tick as tt
+from kwok_tpu_torch import graft_entry
+from kwok_tpu_torch.parallel import distributed
+from kwok_tpu_torch.parallel.mesh import ShardedSoA, make_mesh, sharded_run_ticks, sharded_tick
 from kwok_tpu_torch.stages import load_builtin
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -88,6 +91,17 @@ def test_entry_points_raise_without_cuda():
         DeviceStagePlayer(ResourceStore(), "Pod", load_builtin("pod-fast"), capacity=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceLeaseLane(NodeLeaseController(ResourceStore(), "a"), capacity=4)
+    # the mesh takes distinct cards unless given a device list
+    with pytest.raises(ValueError, match="CUDA devices"):
+        make_mesh(2)
+    with pytest.raises(ValueError, match="CUDA devices"):
+        make_mesh()
+    with pytest.raises(ValueError, match="CUDA devices"):
+        graft_entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        graft_entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        distributed.initialize("127.0.0.1:1", num_processes=2, process_id=0)
 
 
 def test_wrappers_refuse_devices_without_kernel_or_plain_version():
@@ -98,6 +112,11 @@ def test_wrappers_refuse_devices_without_kernel_or_plain_version():
         tt.tick(params, meta, 100)
     with pytest.raises(ValueError, match="meta"):
         tt.run_ticks_collect(params, meta, 100, 8)
+    one = make_mesh(devices=["cpu"])
+    with pytest.raises(ValueError, match="meta"):
+        sharded_tick(one)((params,), ShardedSoA((meta,), (0,), 4))
+    with pytest.raises(ValueError, match="meta"):
+        sharded_run_ticks(one, 100, 8)((params,), ShardedSoA((meta,), (0,), 4))
     lane = tt.LeaseLane(fire_at=torch.zeros(4, dtype=torch.int32, device="meta"),
                         key=torch.zeros(2, dtype=torch.uint32, device="meta"))
     with pytest.raises(ValueError, match="meta"):
@@ -112,8 +131,14 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     sim.step(100)
     tt.lease_tick(tt.LeaseLane(fire_at=torch.zeros(4, dtype=torch.int32),
                                key=prng.prng_key(0, "cpu")), 0, 1, 0)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    msim = DeviceSimulator(load_builtin("pod-fast"), capacity=4, mesh=mesh)
+    msim.admit({"metadata": {"name": "p", "namespace": "d"}, "spec": {"nodeName": "n"}})
+    msim.tick_many(100, 8)
+    sharded_run_ticks(mesh, 100, 8)(*msim.to_device())
     assert tt.launches() == {"tick": 0, "run_ticks_collect": 0, "run_ticks": 0,
-                             "scatter_rows": 0, "lease_tick": 0}
+                             "scatter_rows": 0, "lease_tick": 0, "sharded_tick": 0,
+                             "sharded_run_ticks": 0}
 
 
 @pytest.fixture
@@ -169,3 +194,39 @@ def test_lease_tick_equals_plain_version_on_the_card(cuda_device):
         for g, w in zip((got[0].fire_at, got[1], got[2]), (want[0].fire_at, want[1], want[2])):
             assert torch.equal(g, w)
         assert torch.equal(got[0].key.view(torch.int32), want[0].key.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sharded_kernels_equal_plain_versions_on_the_card(cuda_device):
+    """Four shards of one card, each launched with its row offset,
+    against the plain version of the whole, unsharded state."""
+    from kwok_tpu_torch.engine.compiler import CompiledStageSet
+    from kwok_tpu_torch.parallel import mesh as M
+
+    cset = CompiledStageSet(load_builtin("pod-general") + load_builtin("pod-chaos"))
+    cset.signature_for({"metadata": {"name": "p"}, "spec": {"nodeName": "n"}})
+    params = tt.params_from_compiled(cset, cuda_device)
+    rng = np.random.default_rng(2)
+    n = 4 * 1251
+    whole = tt.soa_from_numpy(dict(
+        features=rng.integers(0, 8, (n, cset.C)).astype(np.int32),
+        sig=np.zeros(n, np.int32), ovc=np.zeros(n, np.int32),
+        stage=rng.integers(-1, cset.num_stages, n).astype(np.int32),
+        fire_at=rng.integers(0, 3000, n).astype(np.int32),
+        active=rng.random(n) < 0.9, rematch=rng.random(n) < 0.5,
+        del_ts=np.full(n, -(2**31), np.int32),
+        now=np.array(0, np.int32), key=np.array([0, 5], np.uint32)), cuda_device)
+    mesh = M.make_mesh(devices=[cuda_device] * 4)
+    placed = M.replicate(params, mesh)
+    sharded = M.shard_rows(whole, mesh)
+    step = M.sharded_tick(mesh, 100)
+    for _ in range(5):
+        sharded, kout = step(placed, sharded)
+        whole, pout = tt._tick_impl(params, whole, 100)
+        assert torch.equal(kout.fired_stage.to_host(), pout.fired_stage.cpu())
+        assert int(kout.fired_count) == int(pout.fired_count)
+    sharded, kc = M.sharded_run_ticks(mesh, 100, 20)(placed, sharded)
+    whole, pc = tt._run_ticks_impl(params, whole, 100, 20)
+    assert int(kc) == int(pc)
+    for f in M.ROW_FIELDS:
+        assert torch.equal(sharded.column(f).to_host(), getattr(whole, f).cpu()), f

@@ -316,6 +316,36 @@ def test_lane_grows_past_capacity():
         ctrl.stop()
 
 
+def test_renew_batch_builds_its_held_set_once(monkeypatch):
+    """The lane renews every due lease in one batch; the reference built
+    the held set once per name, quadratic in the batch.  The port's copy
+    builds it once and fails the same names as the reference."""
+    from kwok_tpu.cluster.store import ResourceStore as JaxStore
+    from kwok_tpu.controllers.node_lease_controller import NodeLeaseController as JaxCtrl
+    from kwok_tpu_torch.controllers import node_lease_controller as port_module
+
+    names = [f"n{i}" for i in range(300)]
+    ctrls = [JaxCtrl(JaxStore(), "inst-a"), NodeLeaseController(ResourceStore(), "inst-a")]
+    for ctrl in ctrls:
+        for name in names:
+            ctrl._wanted.add(name)
+            ctrl._sync(name)
+        assert ctrl.held_nodes() == set(names)
+        ctrl.store.delete("Lease", "n7", namespace=NAMESPACE_NODE_LEASE)
+    built = []
+
+    def counting_set(*args):
+        built.append(1)
+        return set(*args)
+
+    monkeypatch.setattr(port_module, "set", counting_set, raising=False)
+    asked = names + ["not-held"]
+    failed = [ctrl.renew_batch(asked) for ctrl in ctrls]
+    assert sorted(failed[1]) == sorted(failed[0]) == ["n7", "not-held"]
+    assert ctrls[1].renew_count == ctrls[0].renew_count == 2 * len(names) - 1
+    assert len(built) <= 2, f"renew_batch built {len(built)} sets for {len(asked)} names"
+
+
 def test_device_backend_lease_lanes_under_churn():
     store = ResourceStore()
     ctr = Controller(

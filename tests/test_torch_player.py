@@ -301,9 +301,28 @@ def test_paced_loop_catches_up_with_macro_ticks():
 
 
 def test_mesh_is_refused_until_ported():
-    with pytest.raises(NotImplementedError):
+    """A mesh that is not a parallel.mesh.Mesh is refused; on a CPU mesh
+    the player shards its rows, and step_pipelined takes step_batch (the
+    mesh path ticks one tick at a time and keeps nothing in flight)."""
+    from kwok_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         DeviceStagePlayer(ResourceStore(), "Pod", load_builtin("pod-fast"), mesh=object(),
                           device="cpu")
+    store = ResourceStore()
+    env = PodEnv()
+    player = DeviceStagePlayer(
+        store, "Pod", load_builtin("pod-fast"), capacity=5, tick_ms=20,
+        funcs_for=env.funcs, on_delete=env.release, device="cpu",
+        mesh=make_mesh(devices=["cpu"] * 4),
+    )
+    assert player.sim.capacity == 8
+    for i in range(4):
+        store.create(make_pod(f"pod-{i}"))
+    admit_all(player, store)
+    fired = sum(player.step_pipelined(20, 10) for _ in range(5))
+    assert player._inflight is None and fired == player.transitions > 0
+    assert all(phase(store, f"pod-{i}") == "Running" for i in range(4))
 
 
 # ---------------------------------------------- scenarios of test_shutdown.py

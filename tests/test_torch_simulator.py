@@ -260,5 +260,15 @@ def test_rebase_moves_epoch_and_timers():
 
 
 def test_mesh_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Only a parallel.mesh.Mesh is taken, of the device kind asked for;
+    a CPU mesh pads the capacity to its shards (tests/test_torch_mesh.py
+    holds the mesh path against JAX)."""
+    from kwok_tpu_torch.parallel.mesh import make_mesh
+
+    with pytest.raises(TypeError, match="Mesh"):
         TorchSim(torch_load("pod-fast"), capacity=4, device="cpu", mesh=object())
+    mesh = make_mesh(devices=["cpu"] * 3)
+    with pytest.raises(ValueError, match="kind"):
+        TorchSim(torch_load("pod-fast"), capacity=4, device="meta", mesh=mesh)
+    sim = TorchSim(torch_load("pod-fast"), capacity=4, mesh=mesh)
+    assert sim.mesh is mesh and sim.capacity == 6 and sim.device == torch.device("cpu")
