@@ -14,7 +14,14 @@ Phases, in order; any failure raises and exits non-zero:
    16, 16,384 and 1,000,003 slots; and the row-sharded tick and
    multi-tick loop over 4 shards of the card, each shard launched with
    its global row offset, against the plain version of the whole state
-   at N = 4,096 and 1,000,004 (1,000,003 padded to the shards);
+   at N = 4,096 and 1,000,004 (1,000,003 padded to the shards); then
+   hand-built adversarial tables (``adversarial_tables``) at N = 4,096
+   and 1,000,003: S = 1, 2, 31, 32, 33 and 126 stages through
+   ``run_ticks_collect``, ``run_ticks`` and both sharded kernels, S = 128
+   through ``tick``, one and seven conditions a stage, weights that are
+   0, negative, overridden, SENTINEL or large enough that the total and
+   the running sum wrap int32, several signatures and override classes
+   with effects;
 3. the main path through ``DeviceSimulator`` at full width: 1,000,000
    pods of pod-general + pod-chaos and 10,000 nodes of the default lease
    node stages (as the reference ``bench.py`` builds them): macro-ticks
@@ -38,7 +45,10 @@ Phases, in order; any failure raises and exits non-zero:
    launched;
 4. each kernel timed at the main path's shapes (CUDA events over
    chained calls, and its device time from torch.profiler) beside its
-   plain version and its bound;
+   plain version and its bound; for ``run_ticks_collect`` and
+   ``run_ticks`` also the device time on an idle copy of the live state
+   (no row due, none rematching: the streaming floor) and the key
+   schedule's device time by kernel name;
 5. the device backend of the Controller facade, as ``kwok --backend
    device`` runs it: a ResourceStore of 10,000 Nodes and 50,000 Pods
    (pod-general + pod-chaos, labelled for container-failure chaos, 5
@@ -61,6 +71,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -106,6 +117,16 @@ MESH_MACROS = 100
 MESH_CHURN_EVERY = 10
 DRYRUN_ROWS = 65_536
 
+# phase 2's adversarial tables: stage counts at the row kernel's
+# narrowest segments (2 lanes), on both sides of its widest (32 lanes),
+# and up to the most the int8 collect path takes, 128 through the
+# per-tick kernel; one and seven conditions a stage; several signatures
+# and override classes
+ADV_S = (1, 2, 31, 32, 33, 126)
+ADV_WIDE_S = 128
+ADV_KC = (1, 7)
+ADV_C, ADV_SIG, ADV_OVC = 5, 3, 4
+
 # Least-time model: H100 SXM, 3.35 TB/s HBM.
 # 32-bit integer operations at the SM's issue rate: each of its four
 # schedulers issues one warp instruction per clock, 128 lanes per SM,
@@ -147,10 +168,22 @@ def phase_environment():
     secs = kernels.build()
     log(f"build: {secs:.1f} s for {', '.join(kernels.SOURCES)}")
     for src, text in kernels.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+        for line in ptxas_report(text):
+            log(f"  ptxas {src} {line}")
     return smi
+
+
+def ptxas_report(text: str):
+    """Each kernel's registers, spills and static shared bytes from
+    nvcc's ``-Xptxas -v`` output, named by the kernel (and its mode)."""
+    name = "?"
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"([a-z_]+_kernel)(I(?:Li\d+E)+E)?", line)
+            args = re.findall(r"Li(\d+)E", (m.group(2) or "") if m else "")
+            name = (m.group(1) + (f"<{','.join(args)}>" if args else "")) if m else line
+        elif "registers" in line or "spill" in line:
+            yield f"{name}: {line.split('info    :')[-1].strip()}"
 
 
 # ------------------------------------------------------------------ phase 2
@@ -293,7 +326,7 @@ def assert_sharded_equal(what, sharded, whole):
         assert_equal(f"{what} shard {i} key", shard.key.cpu(), whole.key.cpu())
 
 
-def sharded_parity(cset, name: str, n: int, seed: int, device) -> None:
+def sharded_parity(params, start, label: str, device, ticks: int = 20, run_k: int = 50) -> None:
     """The sharded kernels over MESH_SHARDS shards of the card, each
     launched with its global row offset, against the plain version of
     the whole, unsharded state: a shard that drew from row 0 would
@@ -302,13 +335,12 @@ def sharded_parity(cset, name: str, n: int, seed: int, device) -> None:
     from kwok_tpu_torch.parallel import mesh as M
 
     mesh = M.make_mesh(devices=[device] * MESH_SHARDS)
-    params, start = random_state(cset, n, seed, device)
     placed = M.replicate(params, mesh)
     ks, ps = M.shard_rows(start, mesh), clone_soa(start)
     step = M.sharded_tick(mesh, DT_MS)
-    label = f"{name} N={n} over {MESH_SHARDS} shards"
+    label = f"{label} over {MESH_SHARDS} shards"
     fired = 0
-    for t in range(20):
+    for t in range(ticks):
         ks, ko = step(placed, ks)
         ps, po = T._tick_impl(params, ps, DT_MS)
         for f in ("fired", "fired_stage", "deleted"):
@@ -317,12 +349,12 @@ def sharded_parity(cset, name: str, n: int, seed: int, device) -> None:
         assert_equal(f"{label} sharded_tick {t} fired_count", ko.fired_count, po.fired_count)
         fired += int(ko.fired_count)
     assert_sharded_equal(f"{label} sharded_tick", ks, ps)
-    ks, kc = M.sharded_run_ticks(mesh, DT_MS, 50)(placed, ks)
-    ps, pc = T._run_ticks_impl(params, ps, DT_MS, 50)
+    ks, kc = M.sharded_run_ticks(mesh, DT_MS, run_k)(placed, ks)
+    ps, pc = T._run_ticks_impl(params, ps, DT_MS, run_k)
     assert_equal(f"{label} sharded_run_ticks count", kc, pc)
     assert_sharded_equal(f"{label} sharded_run_ticks", ks, ps)
-    log(f"parity {label} at offsets {list(ks.offsets)}: sharded_tick x20 (fired {fired}), "
-        f"sharded_run_ticks K=50 (count {int(kc)}) against the unsharded plain version: equal")
+    log(f"parity {label} at offsets {list(ks.offsets)}: sharded_tick x{ticks} (fired {fired}), "
+        f"sharded_run_ticks K={run_k} (count {int(kc)}) against the unsharded plain version: equal")
 
 
 def phase_parity(device):
@@ -367,7 +399,9 @@ def phase_parity(device):
             assert_soa_equal(f"{label} scatter_rows", ks, ps)
             log(f"parity {label}: tick x50 (fired {fired}), run_ticks_collect K={MACRO_K}, "
                 f"run_ticks K=50 (count {int(kc)}), scatter_rows B={batch[0].shape[0]}: equal")
-            sharded_parity(cset, name, pad_rows(n, MESH_SHARDS), seed, device)
+            n_pad = pad_rows(n, MESH_SHARDS)
+            sharded_parity(*random_state(cset, n_pad, seed, device), f"{name} N={n_pad}", device)
+    adversarial_parity(device)
     for seed in (0, 1, 42, 2**31 - 1):
         key = prng.prng_key(seed, device)
         for n in (1, 3, 4_097, 1_000_003):
@@ -378,6 +412,108 @@ def phase_parity(device):
     for n in LEASE_PARITY_NS:
         lease_parity(n, device)
     log(f"parity threefry split/uniform: equal; phase 2 took {time.perf_counter() - t0:.1f} s")
+
+
+def adversarial_tables(S: int, KC: int, n: int, seed: int):
+    """Hand-built TickParams and SoA of S stages, KC conditions a stage
+    and n rows, as numpy dicts for ``params_from_numpy`` and
+    ``soa_from_numpy``: random selectors (about three in four conditions
+    pass), weights drawn from 0, negative, small and large values, so
+    that a few matched large ones pass 2**31 and the total and the
+    running sum wrap int32, SENTINEL as a weight (negative) and as an
+    override (none), random delays, jitters and deadlines, rare delete
+    stages, and ADV_SIG signatures and ADV_OVC override classes with
+    effects.  The params depend on the seed alone, not on n."""
+    from kwok_tpu_torch.engine.compiler import IDLE, NEVER, SENTINEL
+
+    rng = np.random.default_rng(seed)
+    C, SIG, OVC = ADV_C, ADV_SIG, ADV_OVC
+    weights = np.array([0, -7, 1, 3, 2**30, 2**31 - 1, 2**30 + 12_345, SENTINEL], np.int64)
+
+    def override(shape, values):
+        return np.where(rng.random(shape) < 0.3, values, SENTINEL).astype(np.int32)
+
+    params = dict(
+        cond_col=rng.integers(0, C, (S, KC)).astype(np.int32),
+        cond_mask=np.left_shift(1, rng.integers(0, 8, (S, KC))).astype(np.int32),
+        cond_neg=rng.random((S, KC)) < 0.5,
+        cond_valid=rng.random((S, KC)) < 0.5,
+        w_static=rng.choice(weights, S).astype(np.int32),
+        d_static=rng.integers(0, 3_000, S).astype(np.int32),
+        j_static=np.where(rng.random(S) < 0.5, rng.integers(0, 6_000, S), SENTINEL).astype(np.int32),
+        has_jitter=rng.random(S) < 0.5,
+        d_from_del_ts=rng.random(S) < 0.2,
+        j_from_del_ts=rng.random(S) < 0.2,
+        stage_delete=rng.random(S) < 0.03,
+        eff_mode=(rng.random((SIG, S, C)) < 0.3).astype(np.int32),
+        eff_val=rng.integers(0, 256, (SIG, S, C)).astype(np.int32),
+        ov_w=override((OVC, S), rng.choice(weights, (OVC, S))),
+        ov_d=override((OVC, S), rng.integers(0, 3_000, (OVC, S))),
+        ov_j=override((OVC, S), rng.integers(0, 6_000, (OVC, S))),
+    )
+    now = 100_000
+    stage = np.where(rng.random(n) < 0.3, IDLE, rng.integers(0, S, n))
+    soa = dict(
+        features=rng.integers(0, 256, (n, C)).astype(np.int32),
+        sig=rng.integers(0, SIG, n).astype(np.int32),
+        ovc=rng.integers(0, OVC, n).astype(np.int32),
+        stage=stage.astype(np.int32),
+        fire_at=np.where(stage == IDLE, NEVER, now + rng.integers(-500, 3_000, n)).astype(np.int32),
+        active=rng.random(n) < 0.9,
+        rematch=rng.random(n) < 0.3,
+        del_ts=np.where(rng.random(n) < 0.2, now + rng.integers(-2_000, 8_000, n),
+                        SENTINEL).astype(np.int32),
+        now=np.array(now, np.int32),
+        key=np.array([0, seed], np.uint32),
+    )
+    return params, soa
+
+
+def adversarial_parity(device) -> None:
+    """Every mode of the row kernel on the adversarial tables against its
+    plain version: ``run_ticks_collect`` K=8, then ``run_ticks`` K=20 on
+    the state it left, and both sharded kernels from the start (over
+    MESH_SHARDS shards, the rows padded to them); ``tick`` x5 for the
+    128-stage tables."""
+    from kwok_tpu_torch.ops import tick as T
+    from kwok_tpu_torch.parallel.mesh import pad_rows
+
+    t0 = time.perf_counter()
+    for n in PARITY_NS:
+        for S in ADV_S + (ADV_WIDE_S,):
+            for KC in ADV_KC:
+                seed = 100 * S + KC
+                pd, sd = adversarial_tables(S, KC, n, seed)
+                params, start = T.params_from_numpy(pd, device), T.soa_from_numpy(sd, device)
+                label = f"adversarial S={S} KC={KC} N={n}"
+                ks, ps = clone_soa(start), clone_soa(start)
+                if S == ADV_WIDE_S:
+                    fired = 0
+                    for t in range(5):
+                        ks, ko = T.tick(params, ks, DT_MS)
+                        ps, po = T._tick_impl(params, ps, DT_MS)
+                        for f in ko._fields:
+                            assert_equal(f"{label} tick {t} out.{f}", getattr(ko, f), getattr(po, f))
+                        assert_soa_equal(f"{label} tick {t}", ks, ps)
+                        fired += int(ko.fired_count)
+                    log(f"parity {label}: tick x5 (fired {fired}): equal")
+                    continue
+                ks, kst = T.run_ticks_collect(params, ks, DT_MS, MACRO_K)
+                ps, pst = T._run_ticks_collect_impl(params, ps, DT_MS, MACRO_K)
+                assert_equal(f"{label} run_ticks_collect stages", kst, pst)
+                assert_soa_equal(f"{label} run_ticks_collect", ks, ps)
+                ks, kc = T.run_ticks(params, ks, DT_MS, 20)
+                ps, pc = T._run_ticks_impl(params, ps, DT_MS, 20)
+                assert_equal(f"{label} run_ticks count", kc, pc)
+                assert_soa_equal(f"{label} run_ticks", ks, ps)
+                log(f"parity {label}: run_ticks_collect K={MACRO_K} "
+                    f"({int((kst >= 0).sum())} fired), run_ticks K=20 (count {int(kc)}): equal")
+                n_pad = pad_rows(n, MESH_SHARDS)
+                if n_pad != n:
+                    pd, sd = adversarial_tables(S, KC, n_pad, seed)
+                sharded_parity(T.params_from_numpy(pd, device), T.soa_from_numpy(sd, device),
+                               f"adversarial S={S} KC={KC} N={n_pad}", device, ticks=3, run_k=10)
+    log(f"parity adversarial tables: {time.perf_counter() - t0:.1f} s")
 
 
 def lease_state(n: int, now: int, seed: int, device):
@@ -803,11 +939,12 @@ def cuda_ms(fn, reps: int) -> float:
     return a.elapsed_time(b) / reps
 
 
-def device_ms(fn, reps: int):
-    """Mean device time in ms of the kernels ``fn`` launches, over
-    ``reps`` calls, from torch.profiler's CUDA activity (None when the
-    profiler records none).  Unlike cuda_ms it leaves out the host's
-    dispatch, which bounds cuda_ms for kernels shorter than it."""
+def device_kernels_ms(fn, reps: int) -> dict:
+    """Mean device time in ms per call of ``fn``, over ``reps`` calls, of
+    each name torch.profiler's CUDA activity records (empty when it
+    records none).  Host-side operators, whose device time is that of
+    the kernels they launch, are left out, so that nothing counts twice."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -816,8 +953,41 @@ def device_ms(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
-    return total_us / reps / 1e3 if total_us > 0 else None
+    return {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0
+            and getattr(e, "device_type", None) != DeviceType.CPU}
+
+
+def device_ms(fn, reps: int):
+    """Mean device time in ms of the kernels ``fn`` launches, over
+    ``reps`` calls, from torch.profiler's CUDA activity (None when the
+    profiler records none).  Unlike cuda_ms it leaves out the host's
+    dispatch, which bounds cuda_ms for kernels shorter than it."""
+    return sum(device_kernels_ms(fn, reps).values()) or None
+
+
+def tick_split(fn, live_soa, reps: int, smi: str, name: str) -> dict:
+    """Where the device time of ``soa = fn(soa)`` chained on a copy of
+    ``live_soa`` goes: its time by kernel name, the key schedule's share
+    of it, and the time on an idle copy of the state (every fire_at
+    NEVER, no rematch: rows are read, tested and written back, and
+    nothing fires or rematches), the streaming floor; the gap to it is
+    the fire, effect and rematch work."""
+    from kwok_tpu_torch.engine.compiler import NEVER
+
+    by_kernel = device_kernels_ms(chained(fn, clone_soa(live_soa)), reps)
+    live = sum(by_kernel.values())
+    key = sum(v for k, v in by_kernel.items() if "key_schedule" in k)
+    idle_soa = clone_soa(live_soa)
+    idle_soa.fire_at.fill_(NEVER)
+    idle_soa.rematch.zero_()
+    idle = device_ms(chained(fn, idle_soa), reps)
+    split = {"live_device_ms": live, "idle_device_ms": idle,
+             "rematch_work_ms": None if idle is None else live - idle,
+             "key_schedule_device_ms": key,
+             "key_schedule_share": key / live if live else None}
+    log(f"{name} split: {json.dumps(split)}; by kernel {json.dumps(by_kernel)}  [{smi}]")
+    return split
 
 
 def chained(fn, soa):
@@ -865,11 +1035,13 @@ def phase_measure(counts, pod_sim, wide_sim, mesh_sim, smi):
     entries = []
     src_tick = "kwok_tpu_torch/csrc/tick.cu"
 
-    def entry(name, shape, source, replaces, ms, dev_ms, plain_ms, bound, err, library_ms=None):
+    def entry(name, shape, source, replaces, ms, dev_ms, plain_ms, bound, err, library_ms=None,
+              **extra):
         entries.append(dict(
             name=name, shape=shape, route="cuda", source=source, replaces=replaces,
             launches=counts.get(name), max_abs_err=err, ms=ms, device_ms=dev_ms,
-            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms))
+            plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms,
+            **extra))
         dev = "not measured" if dev_ms is None else f"{dev_ms:.4f} ms"
         log(f"{name}: {ms:.4f} ms (device time {dev}), plain {plain_ms:.4f} ms, "
             f"bound {bound[0]:.4f} ms ({bound[1]}), max_abs_err {err}  [{smi}]")
@@ -886,12 +1058,18 @@ def phase_measure(counts, pod_sim, wide_sim, mesh_sim, smi):
     fired = int((kst >= 0).sum())
     collect = lambda s: T.run_ticks_collect(params, s, DT_MS, MACRO_K)[0]  # noqa: E731
     ms = chained_ms(collect, clone_soa(live), 20)
-    dev_ms = device_ms(chained(collect, clone_soa(live)), 20)
+    split = tick_split(collect, live, 20, smi, "run_ticks_collect")
+    dev_ms = split["live_device_ms"] or None
     plain_ms = chained_ms(lambda s: T._run_ticks_collect_impl(params, s, DT_MS, MACRO_K)[0],
                           clone_soa(live), 2)
+    S, KC = params.cond_col.shape
+    smem = kernels.tick_smem_bytes(S, KC, live.features.shape[1])
+    log(f"row kernel at the pod set's widths (S={S}, KC={KC}, C={live.features.shape[1]}): "
+        f"{smem} bytes of dynamic shared memory per block")
     entry("run_ticks_collect", f"{N_PODS:,} pod rows, K=8 (the main path's macro-tick)",
           src_tick, "kwok_tpu/ops/tick.py:241", ms, dev_ms, plain_ms,
-          tick_bound(params, N_PODS, MACRO_K, fired + rematch0, MACRO_K * N_PODS), err)
+          tick_bound(params, N_PODS, MACRO_K, fired + rematch0, MACRO_K * N_PODS), err,
+          split=split, smem_bytes=smem)
 
     # run_ticks at the bench window's shape: 1M pods, K=600
     ks, ps = clone_soa(live), clone_soa(live)
@@ -905,10 +1083,11 @@ def phase_measure(counts, pod_sim, wide_sim, mesh_sim, smi):
     err = max_abs_err([(kc, pc)] + list(zip(ks, ps)))
     window = lambda s: T.run_ticks(params, s, DT_MS, BENCH_TICKS)[0]  # noqa: E731
     ms = chained_ms(window, clone_soa(live), 3)
-    dev_ms = device_ms(chained(window, clone_soa(live)), 3)
+    split = tick_split(window, live, 3, smi, "run_ticks")
+    dev_ms = split["live_device_ms"] or None
     entry("run_ticks", f"{N_PODS:,} pod rows, K=600 (the bench-style window)",
           src_tick, "kwok_tpu/ops/tick.py:323", ms, dev_ms, plain_ms,
-          tick_bound(params, N_PODS, BENCH_TICKS, int(kc) + rematch0, 4), err)
+          tick_bound(params, N_PODS, BENCH_TICKS, int(kc) + rematch0, 4), err, split=split)
 
     # tick at the wide set's shape: 1M pods, S = 128 (branch coverage)
     wparams, wlive = wide_sim.to_device()

@@ -102,6 +102,8 @@ def _lib(src: str) -> ctypes.CDLL:
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p]
             lib.kwok_threefry_draws.restype = ctypes.c_int
+            lib.kwok_tick_smem_bytes.argtypes = [ctypes.c_int32] * 3
+            lib.kwok_tick_smem_bytes.restype = ctypes.c_size_t
         elif src == "scatter.cu":
             lib.kwok_scatter_rows.argtypes = [ctypes.POINTER(ScatterArgs), ctypes.c_void_p]
             lib.kwok_scatter_rows.restype = ctypes.c_int
@@ -192,6 +194,9 @@ def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int, row_offset: in
     if row_offset < 0 or row_offset + N > 2**32:
         raise ValueError(f"rows [{row_offset}, {row_offset + N}) do not fit uint32 counters")
     SIG, OVC = params.eff_mode.shape[0], params.ov_w.shape[0]
+    if SIG * S * C >= 2**31 or OVC * S >= 2**31:
+        raise ValueError(f"effect or override tables of {SIG * S * C} and {OVC * S} entries: "
+                         "the kernel indexes them with int32")
     a = TickArgs()
     for f in ("cond_col", "cond_mask"):
         setattr(a, f, _check(f, getattr(params, f), i32, (S, KC), dev))
@@ -238,6 +243,12 @@ def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int, row_offset: in
     with torch.cuda.device(dev):
         _raise_on(lib.kwok_tick_rows(ctypes.byref(a), _stream(dev)), "kwok_tick_rows")
     return now, key, outs
+
+
+def tick_smem_bytes(S: int, KC: int, C: int) -> int:
+    """Dynamic shared memory per block of the row kernel of csrc/tick.cu
+    for a stage set of S stages, KC conditions a stage and C columns."""
+    return int(_lib("tick.cu").kwok_tick_smem_bytes(S, KC, C))
 
 
 def scatter_rows(soa, rows, features, sig, ovc, stage, fire_at, active, rematch, del_ts):

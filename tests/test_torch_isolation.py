@@ -175,6 +175,26 @@ def test_kernels_equal_plain_versions_on_the_card(cuda_device):
         assert torch.equal(getattr(ks, f), getattr(ps, f)), f
     assert torch.equal(ks.key.view(torch.int32), ps.key.view(torch.int32))
 
+    # one of chip_smoke.py's adversarial tables: 33 stages (a second chunk
+    # of 32), 7 conditions a stage, weights whose total and running sum
+    # wrap, 3 signatures and 4 override classes with effects
+    from chip_smoke import adversarial_tables
+
+    pd, sd = adversarial_tables(33, 7, 5003, 11)
+    params = tt.params_from_numpy(pd, cuda_device)
+    soa = tt.soa_from_numpy(sd, cuda_device)
+    ks = tt.SoA(*(t.clone() for t in soa))
+    ps = tt.SoA(*(t.clone() for t in soa))
+    ks, kst = tt.run_ticks_collect(params, ks, 100, 8)
+    ps, pst = tt._run_ticks_collect_impl(params, ps, 100, 8)
+    assert torch.equal(kst, pst)
+    ks, kc = tt.run_ticks(params, ks, 100, 20)
+    ps, pc = tt._run_ticks_impl(params, ps, 100, 20)
+    assert int(kc) == int(pc) > 0
+    for f in ("features", "stage", "fire_at", "active", "rematch", "now"):
+        assert torch.equal(getattr(ks, f), getattr(ps, f)), f
+    assert torch.equal(ks.key.view(torch.int32), ps.key.view(torch.int32))
+
 
 @pytest.mark.cuda
 def test_lease_tick_equals_plain_version_on_the_card(cuda_device):

@@ -9,8 +9,11 @@ holds the CUDA kernels against the same plain versions on the card.
 
 The trap tests pin the places where a port goes wrong quietly: float32
 truncation, the uniform's bit recipe, argmax's first-true rule, int32
-wrap, the int8 fired stage, clamped gathers, the rematch flag, the
-clock and key, and memory shared between numpy and torch.
+wrap (of clocks, of the weight total and of the running sum), the int8
+fired stage, clamped gathers, the rematch flag, the clock and key,
+memory shared between numpy and torch, and choices on both sides of
+the kernel's 32-stage chunks.  The adversarial tables are the ones
+chip_smoke.py holds the kernel against on the card.
 """
 
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import ADV_KC, ADV_S, ADV_WIDE_S, adversarial_tables
 from kwok_tpu.engine.simulator import DeviceSimulator as JaxSim
 from kwok_tpu.ops import tick as jt
 from kwok_tpu.stages import default_node_stages, load_builtin
@@ -188,6 +192,29 @@ def test_run_ticks_matches_jax(set_name):
     assert_same(js, ts, "run_ticks")
 
 
+@pytest.mark.parametrize("KC", ADV_KC)
+@pytest.mark.parametrize("S", ADV_S + (ADV_WIDE_S,))
+def test_adversarial_table_matches_jax(S, KC):
+    """Hand-built tables: stage counts on both sides of the row kernel's
+    segment widths and 32-stage chunks, one and seven conditions a
+    stage, weights that are 0, negative, overridden, SENTINEL or large
+    enough to wrap the total, several signatures and override classes
+    with effects, a ragged row count."""
+    pd, sd = adversarial_tables(S, KC, 300, 100 * S + KC)
+    ts, _ = tick_both(pd, sd, ticks=3)
+    jp, js = to_jax(pd, jt.TickParams), to_jax(sd, jt.SoA)
+    tp, ts = to_torch(pd, sd)
+    js, jst = jt.run_ticks_collect(jp, js, DT, 8)
+    ts, tst = tt.run_ticks_collect(tp, ts, DT, 8)
+    assert np.array_equal(np.asarray(jst), tst.numpy())
+    assert_same(js, ts, "run_ticks_collect")
+    if S <= 33:  # XLA compiles the fori loop for ~14 s on a CPU at 126 x 7
+        js, jc = jt.run_ticks(jp, js, DT, 20)
+        ts, tc = tt.run_ticks(tp, ts, DT, 20)
+        assert int(jc) == int(tc) > 0
+        assert_same(js, ts, "run_ticks")
+
+
 # ------------------------------------------------------------------- traps
 
 
@@ -291,6 +318,40 @@ def test_trap_int32_wrap():
     sd = hand_soa(n, now=2**31 - 250, seed=2,
                   del_ts=np.where(np.arange(n) % 2 == 0, -(2**31) + 10, SENTINEL))
     tick_both(pd, sd, ticks=4)
+
+
+def test_trap_cumulative_weight_wrap():
+    """The weight total and the running sum are int32 sums that wrap.
+    Override class 0 weighs three matched stages [2**31 - 1, 2**31 - 1,
+    5]: the total wraps to 3 > 0, so the choice is weighted, and the
+    running sum [2**31 - 1, -2, 3] passes every r in [0, 3) at stage 0
+    (exact sums would pick stage 1 for about half the rows).  Class 1
+    weighs [2**31 - 1, 2, 0]: the total wraps to -(2**31) + 1 <= 0, so
+    the choice falls back to uniform among the three matched stages."""
+    S, n = 3, 512
+    pd = hand_params(S, d_static=[100, 200, 300],
+                     ov_w=[[2**31 - 1, 2**31 - 1, 5], [2**31 - 1, 2, 0]],
+                     ov_d=np.full((2, S), SENTINEL), ov_j=np.full((2, S), SENTINEL))
+    sd = hand_soa(n, seed=12, ovc=np.arange(n) % 2)
+    ts, _ = tick_both(pd, sd, ticks=1)
+    stage = ts.stage.numpy()
+    assert (stage[0::2] == 0).all()
+    assert set(stage[1::2].tolist()) == {0, 1, 2}
+
+
+@pytest.mark.parametrize("S", [16, 17, 31, 32, 33, 64, 65])
+def test_trap_choice_at_segment_boundary(S):
+    """Only the stages on both sides of the kernel's 16- and 32-stage
+    boundaries and the last two match; every one of them is chosen by
+    some row, the same one on both packages."""
+    hits = sorted({s for s in (15, 16, 31, 32, S - 2, S - 1) if s < S})
+    mask = np.full((S, 1), 2, np.int32)
+    mask[hits] = 1
+    pd = hand_params(S, cond_valid=np.ones((S, 1), bool), cond_mask=mask,
+                     w_static=np.arange(1, S + 1), d_static=np.full(S, 100, np.int32))
+    n = 512
+    ts, _ = tick_both(pd, hand_soa(n, seed=S, features=np.ones((n, 1))), ticks=1)
+    assert sorted(set(ts.stage.numpy().tolist())) == hits
 
 
 def test_trap_int8_fired_stage_and_idle():
