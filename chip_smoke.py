@@ -21,7 +21,12 @@ Phases, in order; any failure raises and exits non-zero:
    through ``tick``, one and seven conditions a stage, weights that are
    0, negative, overridden, SENTINEL or large enough that the total and
    the running sum wrap int32, several signatures and override classes
-   with effects;
+   with effects; and ``scatter_rows`` from host batches (packed into a
+   pinned buffer, one copy, ``csrc/scatter.cu``) at the feature widths of
+   the node, pod and wide stage sets (C = 2, 13, 17), at 1, 31, 1,024,
+   30,000 and 1,000,003 rows of a 1,000,003-row SoA (the last a
+   permutation), with repeated rows, and two batches back to back with no
+   sync between them while a kernel holds the stream;
 3. the main path through ``DeviceSimulator`` at full width: 1,000,000
    pods of pod-general + pod-chaos and 10,000 nodes of the default lease
    node stages (as the reference ``bench.py`` builds them): macro-ticks
@@ -36,8 +41,9 @@ Phases, in order; any failure raises and exits non-zero:
    1,000,000-pod / 10,000-node simulators unsharded, on
    ``make_mesh(torch.cuda.device_count())`` (one shard per card) and on
    4 shards of one card, stepped in lockstep through 100 macro-ticks of
-   K=8 with phase 3's churn every 10; every tick's fired stages and the
-   final SoA must be equal across the three.  Then ``sharded_run_ticks``
+   K=8 with phase 3's churn every 10 (the macro-tick after a churn split
+   into the host writes' flush and the rest); every tick's fired stages
+   and the final SoA must be equal across the three.  Then ``sharded_run_ticks``
    over the 4 shards at 1M x K=600 against ``run_ticks`` on the same
    state, and ``graft_entry.dryrun_multichip`` (sharded ticks and the
    full player drain with GC, checked against unsharded) over 4 shards
@@ -48,7 +54,10 @@ Phases, in order; any failure raises and exits non-zero:
    plain version and its bound; for ``run_ticks_collect`` and
    ``run_ticks`` also the device time on an idle copy of the live state
    (no row due, none rematching: the streaming floor) and the key
-   schedule's device time by kernel name;
+   schedule's device time by kernel name; for ``scatter_rows`` at the
+   churn's 30,000 rows also the wrapper from a host batch and the phase 3
+   simulator's ``_flush_pending`` end to end, one flush of it under
+   ``torch.cuda.set_sync_debug_mode("error")``;
 5. the device backend of the Controller facade, as ``kwok --backend
    device`` runs it: a ResourceStore of 10,000 Nodes and 50,000 Pods
    (pod-general + pod-chaos, labelled for container-failure chaos, 5
@@ -94,6 +103,14 @@ SAMPLE = 1_000
 WIDE_STAGES = 128
 WIDE_TAGGED = 1_000
 PARITY_NS = (4_096, 1_000_003)
+# phase 2's scatter batches: host batches of B rows into a SoA of
+# SCATTER_N rows, the largest a permutation of all of them; 30,000 is the
+# churn's flush (phase 3b's after-churn macro-tick and phase 4)
+SCATTER_N = 1_000_003
+SCATTER_BS = (1, 31, 1_024, 30_000, SCATTER_N)
+# how long the back-to-back check holds the stream, in clocks (~20 ms at
+# 1.98 GHz), so that both copies wait behind it
+HOLD_CYCLES = 40_000_000
 LEASE_PARITY_NS = (16, 16_384, 1_000_003)
 # the facade phase: the lane has device_capacity slots.  Its pods are
 # cut from 1,000,000 to 50,000: the card's host admits and warms
@@ -391,17 +408,18 @@ def phase_parity(device):
             ps, pc = T._run_ticks_impl(params, ps, DT_MS, 50)
             assert_equal(f"{label} run_ticks count", kc, pc)
             assert_soa_equal(f"{label} run_ticks", ks, ps)
-            # scatter_rows: a padded batch whose padding repeats row 0
+            # scatter_rows from a host batch with repeated rows
             ks, ps = clone_soa(start), clone_soa(start)
-            batch = scatter_batch(start, cset, min(n // 4, 3000), seed, device)
+            batch = scatter_batch(n, cset.C, min(n // 4, 3000), seed)
             T.scatter_rows(ks, *batch)
-            T._scatter_rows_impl(ps, *batch)
+            T._scatter_rows_impl(ps, *on_card(batch, device))
             assert_soa_equal(f"{label} scatter_rows", ks, ps)
             log(f"parity {label}: tick x50 (fired {fired}), run_ticks_collect K={MACRO_K}, "
                 f"run_ticks K=50 (count {int(kc)}), scatter_rows B={batch[0].shape[0]}: equal")
             n_pad = pad_rows(n, MESH_SHARDS)
             sharded_parity(*random_state(cset, n_pad, seed, device), f"{name} N={n_pad}", device)
     adversarial_parity(device)
+    scatter_parity(device)
     for seed in (0, 1, 42, 2**31 - 1):
         key = prng.prng_key(seed, device)
         for n in (1, 3, 4_097, 1_000_003):
@@ -556,27 +574,86 @@ def lease_parity(n: int, device) -> None:
     log(f"parity lease_tick n={n}: 5 chained ticks ({due_seen} renewals): equal")
 
 
-def scatter_batch(soa, cset, k: int, seed: int, device):
+def scatter_batch(n: int, C: int, B: int, seed: int, repeats: bool = True):
+    """A host batch (numpy, in ``scatter_rows``' argument order) of B rows
+    of a SoA of n rows and C feature columns, in random order, both bool
+    columns mixed.  With ``repeats`` about a quarter of the rows repeat
+    an earlier one and carry its values; without, the rows are distinct
+    (B = n: a permutation)."""
     from kwok_tpu_torch.engine.compiler import IDLE, NEVER, SENTINEL
 
     rng = np.random.default_rng(seed + 1)
-    n = soa.features.shape[0]
-    rows = rng.choice(n, size=k, replace=False).astype(np.int32)
-    pad = 1 << max(k - 1, 0).bit_length()
-    idx = np.concatenate([np.arange(k), np.zeros(pad - k, np.int64)])
-    vals = dict(
-        features=rng.integers(0, 2**20, (k, cset.C)).astype(np.int32),
-        sig=rng.integers(0, soa.sig.max().item() + 1, k).astype(np.int32),
-        ovc=rng.integers(0, soa.ovc.max().item() + 1, k).astype(np.int32),
-        stage=np.full(k, IDLE, np.int32),
-        fire_at=np.full(k, NEVER, np.int32),
-        active=rng.random(k) < 0.8,
-        rematch=rng.random(k) < 0.9,
-        del_ts=np.where(rng.random(k) < 0.3, 123_000, SENTINEL).astype(np.int32),
-    )
-    out = [torch.from_numpy(rows[idx]).to(device)]
-    out += [torch.from_numpy(np.ascontiguousarray(v[idx])).to(device) for v in vals.values()]
-    return tuple(out)
+    u = max(1, B * 3 // 4) if repeats else B
+    uniq = rng.choice(n, size=u, replace=False).astype(np.int32)
+    pick = rng.integers(0, u, B) if repeats else np.arange(B)
+    vals = [
+        rng.integers(0, 2**20, (u, C)).astype(np.int32),
+        rng.integers(0, 4, u).astype(np.int32),
+        rng.integers(0, 4, u).astype(np.int32),
+        np.where(rng.random(u) < 0.5, IDLE, rng.integers(0, 9, u)).astype(np.int32),
+        np.where(rng.random(u) < 0.5, NEVER, rng.integers(0, 10**6, u)).astype(np.int32),
+        rng.random(u) < 0.8,
+        rng.random(u) < 0.5,
+        np.where(rng.random(u) < 0.3, 123_000, SENTINEL).astype(np.int32),
+    ]
+    return [uniq[pick]] + [np.ascontiguousarray(v[pick]) for v in vals]
+
+
+def on_card(batch, device):
+    return [torch.from_numpy(a).to(device) for a in batch]
+
+
+def scatter_state(n: int, C: int, seed: int, device):
+    """A seeded SoA of n rows and C feature columns, for the scatter."""
+    from kwok_tpu_torch.ops.tick import soa_from_numpy
+
+    rng = np.random.default_rng(seed)
+    i32 = lambda *shape: rng.integers(-(2**31), 2**31, shape).astype(np.int32)  # noqa: E731
+    return soa_from_numpy(dict(
+        features=i32(n, C), sig=i32(n), ovc=i32(n), stage=i32(n), fire_at=i32(n),
+        active=rng.random(n) < 0.5, rematch=rng.random(n) < 0.5, del_ts=i32(n),
+        now=np.array(0, np.int32), key=np.array([0, seed], np.uint32)), device)
+
+
+def scatter_parity(device) -> None:
+    """scatter_rows from host batches (pack, one copy, csrc/scatter.cu)
+    against the plain version on the same batch on the card, at the
+    feature widths of the node, pod and wide stage sets, at SCATTER_BS
+    rows; then two batches back to back with no sync between them,
+    writing different values into rows they share, while a kernel holds
+    the stream: a pinned buffer reused before its copy ran would leave
+    the second batch's values in the first batch's rows."""
+    from kwok_tpu_torch.engine.compiler import CompiledStageSet
+    from kwok_tpu_torch.ops import tick as T
+
+    t0 = time.perf_counter()
+    widths = {name: compiled_set(name).C for name in ("node-default-lease", "pod-general+pod-chaos")}
+    widths["wide"] = CompiledStageSet(wide_stages()).C
+    for i, (name, C) in enumerate(widths.items()):
+        start = scatter_state(SCATTER_N, C, 20 + i, device)
+        for B in SCATTER_BS:
+            batch = scatter_batch(SCATTER_N, C, B, 30 + i, repeats=B < SCATTER_N)
+            ks, ps = clone_soa(start), clone_soa(start)
+            T.scatter_rows(ks, *batch)
+            T._scatter_rows_impl(ps, *on_card(batch, device))
+            assert_soa_equal(f"scatter_rows {name} C={C} B={B}", ks, ps)
+        B = min(30_000, SCATTER_N // 4)
+        first = scatter_batch(SCATTER_N, C, B, 40 + i, repeats=False)
+        second = scatter_batch(SCATTER_N, C, B, 50 + i, repeats=False)
+        # every other row of the first batch, and as many of its own
+        fresh = np.setdiff1d(second[0], first[0])[:B - (B + 1) // 2]
+        second[0] = np.random.default_rng(i).permutation(np.concatenate([first[0][::2], fresh]))
+        ks, ps = clone_soa(start), clone_soa(start)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(HOLD_CYCLES)
+        T.scatter_rows(ks, *first)
+        T.scatter_rows(ks, *second)
+        for batch in (first, second):
+            T._scatter_rows_impl(ps, *on_card(batch, device))
+        assert_soa_equal(f"scatter_rows {name} C={C} back to back", ks, ps)
+        log(f"parity scatter_rows {name} C={C}: host batches of {list(SCATTER_BS)} rows into "
+            f"{SCATTER_N} and two back to back without a sync: equal")
+    log(f"parity scatter_rows: {time.perf_counter() - t0:.1f} s")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -824,6 +901,7 @@ def phase_mesh(smi, device):
     rng = np.random.default_rng(3)
     perm = rng.permutation(N_PODS)
     per_macro = {name: [] for name in sims}
+    flush_s = {name: [] for name in sims}
     churn_s = dict.fromkeys(sims, 0.0)
     fired = dict.fromkeys(sims, 0)
     churns = deleted = 0
@@ -832,6 +910,12 @@ def phase_mesh(smi, device):
         outs = []
         for name, (pods, nodes) in sims.items():
             t0 = time.perf_counter()
+            # the host writes' flush, which tick_many would make first:
+            # after a churn the unsharded pods' scatter (asynchronous, so
+            # its copy and kernel fall in the rest); nothing on a mesh,
+            # which re-uploads in full
+            pods._flush_pending()
+            flush_s[name].append(time.perf_counter() - t0)
             st, t0_ms = pods.tick_many(DT_MS, MACRO_K)
             nst, _ = nodes.tick_many(DT_MS, MACRO_K)
             per_macro[name].append(time.perf_counter() - t0)
@@ -883,6 +967,8 @@ def phase_mesh(smi, device):
         "ms_per_macro_tick": sum(t) / MESH_MACROS * 1e3,
         "median_ms": float(np.median(t)) * 1e3,
         "after_churn_mean_ms": float(np.mean([t[m] for m in after])) * 1e3,
+        "after_churn_flush_ms": float(np.mean([flush_s[name][m] for m in after])) * 1e3,
+        "after_churn_rest_ms": float(np.mean([t[m] - flush_s[name][m] for m in after])) * 1e3,
         "transitions_per_s": fired[name] / sum(t),
         "transitions": fired[name],
         "churn_s": churn_s[name],
@@ -988,6 +1074,50 @@ def tick_split(fn, live_soa, reps: int, smi: str, name: str) -> dict:
              "key_schedule_share": key / live if live else None}
     log(f"{name} split: {json.dumps(split)}; by kernel {json.dumps(by_kernel)}  [{smi}]")
     return split
+
+
+def wall_ms(fn, reps: int) -> float:
+    """Mean host ms of ``fn`` up to the end of its work on the card, over
+    ``reps`` calls, after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total += time.perf_counter() - t0
+    return total / reps * 1e3
+
+
+def flush_ms(sim, k: int, reps: int) -> dict:
+    """``sim._flush_pending`` at k pending rows, on the host clock to the
+    end of its work on the card: median and mean ms over ``reps`` flushes
+    after one warm-up.  The host mirror is synced first, so each flush
+    writes back what the SoA holds.  One more flush runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on a
+    host-device sync."""
+    sim._ensure_synced()
+    rows = np.random.default_rng(13).choice(sim.num_rows, k, replace=False).tolist()
+    times = []
+    for i in range(reps + 2):
+        for r in rows:
+            sim._mark_pending(r)
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                sim._flush_pending()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            continue
+        t0 = time.perf_counter()
+        sim._flush_pending()
+        torch.cuda.synchronize()
+        if i:
+            times.append(time.perf_counter() - t0)
+    return {"rows": k, "median_ms": float(np.median(times)) * 1e3,
+            "mean_ms": float(np.mean(times)) * 1e3, "sync_free": True}
 
 
 def chained(fn, soa):
@@ -1108,26 +1238,35 @@ def phase_measure(counts, pod_sim, wide_sim, mesh_sim, smi):
           src_tick, "kwok_tpu/ops/tick.py:217", ms, dev_ms, plain_ms,
           tick_bound(wparams, N_PODS, 1, int(ko.fired_count) + rematch0, 6 * N_PODS + 4), err)
 
-    # scatter_rows at the churn's shape: 30,000 rows padded to 32,768
+    # scatter_rows at the churn's shape: 30,000 rows, unpadded
     k = 3 * CHURN
-    batch = scatter_batch(live, pod_sim.cset, k, 11, live.features.device)
+    dev = live.features.device
+    C = live.features.shape[1]
+    batch = scatter_batch(N_PODS, C, k, 11, repeats=False)  # a flush's rows are distinct
     ks, ps = clone_soa(live), clone_soa(live)
     T.scatter_rows(ks, *batch)
-    T._scatter_rows_impl(ps, *batch)
+    card_batch = on_card(batch, dev)
+    T._scatter_rows_impl(ps, *card_batch)
     assert_soa_equal("main-shape scatter_rows", ks, ps)
     err = max_abs_err(list(zip(ks, ps)))
-    # the kernel against the plain version; the wrapper adds its range
-    # check (one min/max reduction and one sync), timed on its own
-    ms = cuda_ms(lambda: kernels.scatter_rows(ks, *batch), 50)
-    dev_ms = device_ms(lambda: kernels.scatter_rows(ks, *batch), 50)
-    plain_ms = cuda_ms(lambda: T._scatter_rows_impl(ps, *batch), 20)
-    wrapper_ms = cuda_ms(lambda: T.scatter_rows(ks, *batch), 20)
-    log(f"scatter_rows wrapper with its range check: {wrapper_ms:.4f} ms  [{smi}]")
-    B, C = batch[1].shape
-    nbytes = B * 4 + 2 * B * (C * 4 + 5 * 4 + 2)  # indices; batch read; rows written
-    entry("scatter_rows", f"{B:,} rows (the churn's {k:,}, padded)",
+    # the kernel alone, on the packed batch already on the card, against
+    # the plain version; then the wrapper from the host batch (pack,
+    # range check, copy, kernel) and the simulator's flush, on the host
+    # clock to the end of their work on the card
+    packed = T.pack_batch(batch[0], batch[1:], N_PODS, dev)
+    staged = packed.host.to(dev)
+    ms = cuda_ms(lambda: kernels.scatter_rows(ks, staged, packed.layout), 50)
+    dev_ms = device_ms(lambda: kernels.scatter_rows(ks, staged, packed.layout), 50)
+    plain_ms = cuda_ms(lambda: T._scatter_rows_impl(ps, *card_batch), 20)
+    wrapper_ms = wall_ms(lambda: T.scatter_rows(ks, *batch), 20)
+    flush = flush_ms(pod_sim, k, 20)
+    log(f"scatter_rows from a host batch (pack, check, copy, kernel): {wrapper_ms:.4f} ms; "
+        f"DeviceSimulator._flush_pending at {k:,} rows: {json.dumps(flush)}  [{smi}]")
+    nbytes = k * 4 + 2 * k * (C * 4 + 5 * 4 + 2)  # indices; batch read; rows written
+    entry("scatter_rows", f"{k:,} rows, C={C} (the churn's flush, unpadded)",
           "kwok_tpu_torch/csrc/scatter.cu", "kwok_tpu/ops/tick.py:275",
-          ms, dev_ms, plain_ms, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), err)
+          ms, dev_ms, plain_ms, (nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), err,
+          wrapper_ms=wrapper_ms, flush_ms=flush)
     # lease_tick at the facade's lane: LANE_CAPACITY slots, N_NODES live
     # with fire times spread over one renew interval plus its jitter,
     # ticked every DT_MS as the node player ticks it

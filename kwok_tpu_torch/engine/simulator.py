@@ -44,10 +44,11 @@ from kwok_tpu_torch.ops.prng import prng_key
 from kwok_tpu_torch.ops.tick import (
     SoA,
     TickParams,
+    pack_batch,
     params_from_compiled,
     resolve_device,
     run_ticks_collect,
-    scatter_rows,
+    scatter_packed,
     tick,
 )
 from kwok_tpu_torch.parallel.mesh import (
@@ -197,7 +198,7 @@ class DeviceSimulator:
         #: round-trip
         self._now_host = 0
         #: rows mutated on host since the last device upload; flushed as
-        #: one scatter_rows call instead of a full SoA re-upload
+        #: one scatter_packed call instead of a full SoA re-upload
         self._pending: set = set()
 
     # ------------------------------------------------------------------ host ops
@@ -316,9 +317,12 @@ class DeviceSimulator:
             self._pending.add(row)
 
     def _flush_pending(self) -> None:
-        """Scatter pending host rows into the live device SoA (one kernel
-        launch; rows padded to a power of two as the reference pads them
-        to bound its recompiles)."""
+        """Scatter pending host rows into the live device SoA: gathered
+        from the host columns into one (pinned) host buffer with their
+        range checked on the host, then (on the card) one asynchronous
+        copy and one kernel launch on the tick's stream, with no
+        host-device sync.  Unpadded: the reference pads to a power of two
+        only to bound its recompiles."""
         if not self._pending:
             return
         if self._soa is None:
@@ -326,29 +330,9 @@ class DeviceSimulator:
             return
         rows = np.fromiter(self._pending, np.int32, len(self._pending))
         self._pending.clear()
-        k = len(rows)
-        pad = 1 << max(k - 1, 0).bit_length()
-        if pad > k:
-            # duplicate scatters carry identical values, so padding with
-            # a repeated real row is deterministic
-            rows = np.concatenate([rows, np.full(pad - k, rows[0], np.int32)])
-        self._soa = scatter_rows(
-            self._soa,
-            *(
-                self._upload(a)
-                for a in (
-                    rows,
-                    self.features[rows],
-                    self.sig[rows],
-                    self.ovc[rows],
-                    self.stage[rows],
-                    self.fire_at[rows],
-                    self.active[rows],
-                    self.rematch[rows],
-                    self.del_ts[rows],
-                )
-            ),
-        )
+        columns = tuple(getattr(self, f) for f in ROW_FIELDS)
+        batch = pack_batch(rows, columns, self._soa.features.shape[0], self.device, take=True)
+        self._soa = scatter_packed(self._soa, batch)
         self._rematch_pending = True
 
     def _invalidate_device(self) -> None:

@@ -22,7 +22,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, NamedTuple, Tuple
 
 import torch
 
@@ -251,29 +251,60 @@ def tick_smem_bytes(S: int, KC: int, C: int) -> int:
     return int(_lib("tick.cu").kwok_tick_smem_bytes(S, KC, C))
 
 
-def scatter_rows(soa, rows, features, sig, ovc, stage, fire_at, active, rematch, del_ts):
-    """Launch csrc/scatter.cu: write the batch rows into the SoA in place."""
+#: the segments of a packed scatter batch, in order (csrc/scatter.cu)
+BATCH_FIELDS = ("rows", "features", "sig", "ovc", "stage", "fire_at", "active", "rematch",
+                "del_ts")
+#: the one-byte segments; every other one holds int32 words
+BATCH_FLAGS = ("active", "rematch")
+
+
+class BatchLayout(NamedTuple):
+    """Where each segment of a packed batch of B rows and C feature
+    columns lies in its buffer: ``offsets[i]`` is the byte offset of
+    ``BATCH_FIELDS[i]``, each a multiple of 16."""
+
+    B: int
+    C: int
+    offsets: Tuple[int, ...]
+    nbytes: int
+
+
+def batch_layout(B: int, C: int) -> BatchLayout:
+    offsets, at = [], 0
+    for f in BATCH_FIELDS:
+        offsets.append(at)
+        size = B * (C if f == "features" else 1) * (1 if f in BATCH_FLAGS else 4)
+        at += -(-size // 16) * 16
+    return BatchLayout(B, C, tuple(offsets), at)
+
+
+def scatter_rows(soa, batch: torch.Tensor, layout: BatchLayout) -> None:
+    """Launch csrc/scatter.cu: write a packed batch into the SoA in place.
+    ``batch`` is a uint8 tensor on the SoA's card laid out by ``layout``;
+    its rows have been checked on the host."""
     dev = soa.features.device
     if dev.type != "cuda":
         raise ValueError(f"scatter_rows needs CUDA tensors, got {dev}")
     i32, b = torch.int32, torch.bool
     N, C = soa.features.shape
-    B = rows.shape[0] if rows.dim() == 1 else -1
+    B = layout.B
+    if layout.C != C:
+        raise ValueError(f"batch of {layout.C} feature columns for a SoA of {C}")
+    if B <= 0:
+        raise ValueError("scatter_rows needs at least one row")
+    if B * C >= 2**31:
+        raise ValueError(f"batch of {B} x {C} words: the kernel indexes it with int32")
     a = ScatterArgs()
     a.features = _check("features", soa.features, i32, (N, C), dev)
     for f in ("sig", "ovc", "stage", "fire_at", "del_ts"):
         setattr(a, f, _check(f, getattr(soa, f), i32, (N,), dev))
     for f in ("active", "rematch"):
         setattr(a, f, _check(f, getattr(soa, f), b, (N,), dev))
-    a.rows = _check("rows", rows, i32, (B,), dev)
-    a.src_features = _check("batch features", features, i32, (B, C), dev)
-    for f, t in (("sig", sig), ("ovc", ovc), ("stage", stage), ("fire_at", fire_at),
-                 ("del_ts", del_ts)):
-        setattr(a, "src_" + f, _check("batch " + f, t, i32, (B,), dev))
-    for f, t in (("active", active), ("rematch", rematch)):
-        setattr(a, "src_" + f, _check("batch " + f, t, b, (B,), dev))
-    if B == 0:
-        raise ValueError("scatter_rows needs at least one row")
+    base = _check("batch", batch, torch.uint8, (layout.nbytes,), dev)
+    if base % 16:
+        raise ValueError("batch: not 16-byte aligned")
+    for f, off in zip(BATCH_FIELDS, layout.offsets):
+        setattr(a, f if f == "rows" else "src_" + f, base + off)
     a.b, a.C = B, C
     lib = _lib("scatter.cu")
     with torch.cuda.device(dev):

@@ -358,33 +358,126 @@ def run_ticks(
     return soa._replace(now=now, key=key), count
 
 
-def scatter_rows(
-    soa: SoA,
-    rows: torch.Tensor,
-    features: torch.Tensor,
-    sig: torch.Tensor,
-    ovc: torch.Tensor,
-    stage: torch.Tensor,
-    fire_at: torch.Tensor,
-    active: torch.Tensor,
-    rematch: torch.Tensor,
-    del_ts: torch.Tensor,
-) -> SoA:
-    """Write a batch of rows into the SoA in place.  Every row must lie
-    in [0, N), else it raises on either device (one sync on the card);
-    an empty batch leaves the SoA as it is."""
-    batch = (rows, features, sig, ovc, stage, fire_at, active, rematch, del_ts)
-    if rows.numel() == 0:
-        return soa
-    lo, hi = torch.stack(torch.aminmax(rows)).tolist()
-    n = soa.features.shape[0]
+class PackedBatch(NamedTuple):
+    """A batch packed by ``pack_batch``: its layout and the host buffer
+    that holds it."""
+
+    layout: kernels.BatchLayout
+    host: torch.Tensor  # uint8 [layout.nbytes]; pinned for a SoA on the card
+
+    def segments(self):
+        """numpy views of the batch's segments, in ``BATCH_FIELDS`` order."""
+        array = self.host.numpy()
+        out = []
+        for f, off in zip(kernels.BATCH_FIELDS, self.layout.offsets):
+            dtype, shape = _segment(f, self.layout.B, self.layout.C)
+            size = int(np.prod(shape)) * np.dtype(dtype).itemsize
+            out.append(array[off:off + size].view(dtype).reshape(shape))
+        return out
+
+
+def _segment(f: str, rows: int, C: int):
+    """The numpy dtype and shape of field ``f`` over ``rows`` rows."""
+    dtype = np.bool_ if f in kernels.BATCH_FLAGS else np.int32
+    return dtype, ((rows, C) if f == "features" else (rows,))
+
+
+def _check_rows(rows: np.ndarray, n: int) -> None:
+    lo, hi = int(rows.min()), int(rows.max())
     if lo < 0 or hi >= n:
         raise IndexError(f"scatter_rows: rows span [{lo}, {hi}], outside [0, {n})")
+
+
+def pack_batch(rows: np.ndarray, columns, n: int, device, take: bool = False) -> PackedBatch:
+    """Pack ``rows`` (int32 [B]) and the eight columns (``features``
+    [*, C], ``sig``, ``ovc``, ``stage``, ``fire_at`` int32, ``active``,
+    ``rematch`` bool, ``del_ts`` int32) into one host buffer for a SoA of
+    n rows on ``device``, after checking on the host that every row lies
+    in [0, n).  The columns are the batch itself, one entry per row, or
+    with ``take`` whole host columns of n rows that the batch is gathered
+    from.  For a CUDA device the buffer is pinned: it comes from
+    PyTorch's pinned-memory caching allocator, which sizes its blocks in
+    powers of two and, as the copy out of a block records an event on the
+    copy's stream, hands a block out again only once that copy has run."""
+    rows = np.asarray(rows)
+    if rows.ndim != 1 or rows.dtype != np.int32:
+        raise TypeError(f"rows: expected int32 [B], got {rows.dtype}{rows.shape}")
+    B, C = rows.shape[0], np.shape(columns[0])[-1]
+    if B == 0:
+        raise ValueError("scatter_rows needs at least one row")
+    _check_rows(rows, n)
+    for f, col in zip(kernels.BATCH_FIELDS[1:], columns):
+        dtype, shape = _segment(f, n if take else B, C)
+        if col.dtype != dtype or col.shape != shape:
+            raise TypeError(f"{f}: expected {np.dtype(dtype)}{shape}, got {col.dtype}{col.shape}")
+    layout = kernels.batch_layout(B, C)
+    pinned = torch.device(device).type == "cuda"
+    batch = PackedBatch(layout, torch.empty(layout.nbytes, dtype=torch.uint8, pin_memory=pinned))
+    segs = batch.segments()
+    segs[0][...] = rows
+    if take:
+        idx = rows.astype(np.intp)
+        for seg, col in zip(segs[1:], columns):
+            # in range, checked above: "clip" writes out unbuffered
+            np.take(col, idx, axis=0, out=seg, mode="clip")
+    else:
+        for seg, col in zip(segs[1:], columns):
+            seg[...] = col
+    return batch
+
+
+def scatter_packed(soa: SoA, batch: PackedBatch) -> SoA:
+    """Write a packed batch into the SoA in place.  For a CUDA SoA: one
+    asynchronous copy of the pinned buffer to the card and one launch of
+    csrc/scatter.cu, both on the current stream, which the next tick runs
+    on; no host-device sync.  For a CPU SoA: the plain version on the
+    batch's segments."""
     if not _on_cuda(soa.features):
-        return _scatter_rows_impl(soa, *batch)
-    kernels.scatter_rows(soa, *batch)
+        return _scatter_rows_impl(soa, *(torch.from_numpy(v) for v in batch.segments()))
+    staged = torch.empty(batch.layout.nbytes, dtype=torch.uint8, device=soa.features.device)
+    staged.copy_(batch.host, non_blocking=True)
+    kernels.scatter_rows(soa, staged, batch.layout)
     scatter_rows.launches += 1
     return soa
+
+
+def _host(name: str, a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        if a.device.type != "cpu":
+            raise ValueError(
+                f"scatter_rows: batch {name} lies on {a.device}; the batch is given in host "
+                "memory (numpy arrays or CPU tensors) and crosses to the card in one copy")
+        return a.numpy()
+    return np.asarray(a)
+
+
+def scatter_rows(
+    soa: SoA,
+    rows,
+    features,
+    sig,
+    ovc,
+    stage,
+    fire_at,
+    active,
+    rematch,
+    del_ts,
+) -> SoA:
+    """Write a batch of rows into the SoA in place.  The batch lies in host
+    memory (numpy arrays or CPU tensors); every row must lie in [0, N),
+    which is checked on the host before anything is written; an empty
+    batch leaves the SoA as it is.  For a CUDA SoA the batch is packed
+    into a pinned buffer (``pack_batch``) and written by
+    ``scatter_packed``."""
+    batch = [_host(f, a) for f, a in zip(kernels.BATCH_FIELDS, (
+        rows, features, sig, ovc, stage, fire_at, active, rematch, del_ts))]
+    if batch[0].size == 0:
+        return soa
+    n = soa.features.shape[0]
+    if not _on_cuda(soa.features):
+        _check_rows(batch[0], n)
+        return _scatter_rows_impl(soa, *(torch.as_tensor(a) for a in batch))
+    return scatter_packed(soa, pack_batch(batch[0], batch[1:], n, soa.features.device))
 
 
 def lease_tick(

@@ -38,7 +38,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     p for p in (ROOT / "kwok_tpu_torch").rglob("*")
     if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts
-) + [ROOT / "chip_smoke.py"]
+) + [ROOT / "chip_smoke.py", ROOT / "flush_bench.py"]
 
 
 def test_imports_without_jax_or_kwok_tpu():
@@ -53,7 +53,7 @@ def test_imports_without_jax_or_kwok_tpu():
                      os.path.join(m.module_finder.path, m.name.rsplit(".", 1)[1] + ".py"))]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke
+        import chip_smoke, flush_bench
         leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
             m in ("kwok_tpu", "jax") or m.startswith(("kwok_tpu.", "jax."))))
         print(len(names), leaked)
@@ -65,7 +65,7 @@ def test_imports_without_jax_or_kwok_tpu():
     )
     assert out.returncode == 0, out.stderr
     # every module of the package was imported (all but the top __init__)
-    py_files = [p for p in PORT_FILES if p.suffix == ".py" and p.name != "chip_smoke.py"]
+    py_files = [p for p in PORT_FILES if p.suffix == ".py" and p.parent != ROOT]
     assert int(out.stdout.split()[0]) == len(py_files) - 1
 
 
@@ -250,3 +250,38 @@ def test_sharded_kernels_equal_plain_versions_on_the_card(cuda_device):
     assert int(kc) == int(pc)
     for f in M.ROW_FIELDS:
         assert torch.equal(sharded.column(f).to_host(), getattr(whole, f).cpu()), f
+
+
+@pytest.mark.cuda
+def test_scatter_rows_takes_a_host_batch_and_refuses_one_on_the_card(cuda_device):
+    """From host memory the batch is packed, copied once and written by
+    csrc/scatter.cu, equal to the plain version; a batch already on the
+    card is refused, not moved."""
+    rng = np.random.default_rng(4)
+    n, C, B = 5003, 13, 700
+    soa = tt.soa_from_numpy(dict(
+        features=rng.integers(0, 2**20, (n, C)).astype(np.int32),
+        sig=np.zeros(n, np.int32), ovc=np.zeros(n, np.int32),
+        stage=np.full(n, -1, np.int32), fire_at=np.full(n, 2**31 - 1, np.int32),
+        active=rng.random(n) < 0.5, rematch=rng.random(n) < 0.5,
+        del_ts=np.full(n, -(2**31), np.int32),
+        now=np.array(0, np.int32), key=np.array([0, 4], np.uint32)), cuda_device)
+    uniq = rng.choice(n, 500, replace=False).astype(np.int32)
+    pick = rng.integers(0, 500, B)  # repeated rows carry equal values
+    vals = [rng.integers(0, 2**20, (500, C)).astype(np.int32),
+            *[rng.integers(0, 9, 500).astype(np.int32) for _ in range(4)],
+            rng.random(500) < 0.5, rng.random(500) < 0.5,
+            rng.integers(0, 9, 500).astype(np.int32)]
+    batch = [uniq[pick]] + [np.ascontiguousarray(v[pick]) for v in vals]
+    ks = tt.SoA(*(t.clone() for t in soa))
+    ps = tt.SoA(*(t.clone() for t in soa))
+    tt.scatter_rows(ks, *batch)
+    on_card = [torch.from_numpy(a).to(cuda_device) for a in batch]
+    tt._scatter_rows_impl(ps, *on_card)
+    torch.cuda.synchronize()
+    for f in tt.SoA._fields:
+        a, b = getattr(ks, f), getattr(ps, f)
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.uint32 else a,
+                           b.view(torch.int32) if b.dtype == torch.uint32 else b), f
+    with pytest.raises(ValueError, match="host memory"):
+        tt.scatter_rows(ks, *on_card)

@@ -114,6 +114,17 @@ TORCH = (torch_load, torch_node_stages, TorchStage)
 
 WIDE_POD = new_pod(7, labels={"custom.stage.kwok.x-k8s.io/g4": "v25", **CHAOS})
 
+# host writes between macro-ticks, each flushed unpadded: the first group
+# by _ensure_synced and the next by to_device, back to back
+FLUSH_OPS = [
+    ("admit_bulk", new_pod(0, labels=CHAOS), 40), *[("tick_many", 200, 8)] * 3,
+    ("admit", new_pod(41)), ("release", 3), ("request_delete", 7, 1000), ("sync",),
+    ("admit", new_pod(42, owner_job=True)), ("release", 9), ("refresh_row", 11),
+    ("request_delete", 12, 600), ("refresh_row", 13), ("to_device",),
+    *[("tick_many", 200, 8)] * 4, ("release", 20), ("admit", new_pod(43)), ("refresh_row", 21),
+    ("request_delete", 22, 400), *[("tick_many", 200, 8)] * 2,
+]
+
 # name: (stage set, capacity, seed, operations)
 SCENARIOS = {
     "pod-fast-trajectories-and-idle": ("pod-fast", 8, 0, [
@@ -166,6 +177,7 @@ SCENARIOS = {
         *[("tick_many", 200, 8)] * 3]),
     "node-lease-macro-ticks": ("node-lease", 32, 1, [
         ("admit_bulk", new_node(), 32), *[("tick_many", 1000, 8)] * 5]),
+    "back-to-back-flushes": ("pod-general+pod-chaos", 64, 6, FLUSH_OPS),
     "wide-set-per-tick-branch": ("wide", 32, 2, [
         ("admit_bulk", new_pod(6, labels=CHAOS), 16), ("admit_bulk", WIDE_POD, 16),
         *[("tick_many", 100, 8)] * 3, ("steps", 5, 100)]),
@@ -190,6 +202,13 @@ def run_op(sim, op, is_jax):
         return sim.release(op[1])
     if kind == "request_delete":
         return sim.request_delete(op[1], op[2])
+    if kind == "refresh_row":
+        return sim.refresh_row(op[1])
+    if kind == "sync":
+        return sim._ensure_synced()
+    if kind == "to_device":
+        sim.to_device()
+        return None
     if kind == "request_delete_now":
         return sim.request_delete(op[1], sim.now_ms)
     if kind == "fast_forward":
@@ -246,6 +265,40 @@ def test_simulator_matches_jax(name):
     t.check_feature_parity(rows)
     assert j.phase_counts() == t.phase_counts()
     assert REBASE_AT_MS == JAX_REBASE_AT_MS
+
+
+def test_unpadded_flushes_leave_the_jax_soa(monkeypatch):
+    """After every host write, the port's flush (one packed batch of the
+    distinct pending rows, no padding) leaves the device SoA that the JAX
+    simulator's padded scatter leaves."""
+    import kwok_tpu_torch.engine.simulator as simulator
+
+    flushed = []
+    real = simulator.scatter_packed
+
+    def recording(soa, batch):
+        flushed.append(batch.layout.B)
+        return real(soa, batch)
+
+    monkeypatch.setattr(simulator, "scatter_packed", recording)
+    j = JaxSim(stage_set("pod-general+pod-chaos", JAX), capacity=64, seed=6)
+    t = TorchSim(stage_set("pod-general+pod-chaos", TORCH), capacity=64, seed=6, device="cpu")
+    pending = set()
+    for op in FLUSH_OPS:
+        rj, rt = run_op(j, op, True), run_op(t, op, False)
+        assert rj == rt, op
+        if op[0] in ("admit", "release", "refresh_row", "request_delete"):
+            pending.add(rt if op[0] == "admit" else op[1])
+            continue
+        if pending and op[0] != "admit_bulk":
+            assert flushed[-1] == len(pending), op
+            pending.clear()
+        _, js = j.to_device()
+        _, ts = t.to_device()
+        for f in ARRAYS:
+            assert np.array_equal(np.asarray(getattr(js, f)), getattr(ts, f).numpy()), (op, f)
+        assert int(js.now) == int(ts.now)
+    assert flushed == [3, 5, 3], flushed  # the reference pads to 4, 8 and 4
 
 
 def test_rebase_moves_epoch_and_timers():

@@ -439,7 +439,7 @@ def test_scatter_rows_duplicates_and_empty_batch():
     assert tt.scatter_rows(ts, *[torch.from_numpy(a) for a in empty]) is ts
 
 
-@pytest.mark.parametrize("bad_row", [-1, 64])
+@pytest.mark.parametrize("bad_row", [-1, 64, 2**31 - 1])
 def test_scatter_rows_refuses_rows_outside_the_soa(bad_row):
     """Both routes raise on a row outside [0, N) before writing anything."""
     _, _, pd, sd = start("pod-general", n=64)
@@ -451,3 +451,82 @@ def test_scatter_rows_refuses_rows_outside_the_soa(bad_row):
     with pytest.raises(IndexError, match="outside"):
         tt.scatter_rows(ts, *batch)
     assert all(torch.equal(a, b) for a, b in zip(before, ts))
+
+
+# ------------------------------------------------------------ the packed batch
+
+MIRROR = ("features", "sig", "ovc", "stage", "fire_at", "active", "rematch", "del_ts")
+
+
+def scatter_case(n, C, B, seed):
+    """A seeded SoA of n rows and C feature columns (numpy, by field) and
+    a batch of B rows in any order: duplicate rows carry equal values, and
+    both bool columns mix True and False."""
+    rng = np.random.default_rng(seed)
+    i32 = lambda *shape: rng.integers(-(2**31), 2**31, shape).astype(np.int32)  # noqa: E731
+    sd = dict(features=i32(n, C), sig=i32(n), ovc=i32(n), stage=i32(n), fire_at=i32(n),
+              active=rng.random(n) < 0.5, rematch=rng.random(n) < 0.5, del_ts=i32(n),
+              now=np.array(5, np.int32), key=np.array([0, seed], np.uint32))
+    uniq = rng.choice(n, max(1, B * 3 // 4), replace=False).astype(np.int32)
+    pick = rng.integers(0, len(uniq), B)
+    u = len(uniq)
+    vals = [i32(u, C), i32(u), i32(u), i32(u), i32(u), rng.random(u) < 0.5,
+            rng.random(u) < 0.5, i32(u)]
+    return sd, [uniq[pick]] + [v[pick] for v in vals]
+
+
+@pytest.mark.parametrize("C", [2, 13, 17])
+@pytest.mark.parametrize("B", [1, 3, 4097])
+def test_packed_batch_and_plain_version_match_jax(C, B):
+    """The plain version (from numpy arrays and from CPU tensors) and the
+    pack routine (the batch itself, and gathered from whole host columns)
+    leave the SoA that JAX's _scatter_rows_impl leaves: unpadded, every
+    segment 16-byte aligned."""
+    n = 5_000
+    sd, batch = scatter_case(n, C, B, seed=100 * C + B)
+    assert B < 3 or len(set(batch[0].tolist())) < B  # duplicates
+    want = jt._scatter_rows_impl(to_jax(sd, jt.SoA), *[jnp.asarray(a) for a in batch])
+    assert_same(want, tt.scatter_rows(tt.soa_from_numpy(sd, "cpu"), *batch), "numpy batch")
+    got = tt.scatter_rows(tt.soa_from_numpy(sd, "cpu"), *[torch.from_numpy(a) for a in batch])
+    assert_same(want, got, "tensor batch")
+    packed = tt.pack_batch(batch[0], batch[1:], n, "cpu")
+    assert packed.layout.B == B and packed.layout.C == C
+    assert all(off % 16 == 0 for off in packed.layout.offsets)
+    assert_same(want, tt.scatter_packed(tt.soa_from_numpy(sd, "cpu"), packed), "packed")
+    mirror = [sd[f].copy() for f in MIRROR]
+    for col, v in zip(mirror, batch[1:]):
+        col[batch[0]] = v
+    packed = tt.pack_batch(batch[0], mirror, n, "cpu", take=True)
+    assert_same(want, tt.scatter_packed(tt.soa_from_numpy(sd, "cpu"), packed), "gathered")
+
+
+@pytest.mark.parametrize("bad_row", [-1, 64, 2**31 - 1])
+def test_pack_refuses_rows_outside_the_soa(bad_row):
+    """The host range check comes before anything is packed or copied."""
+    sd, batch = scatter_case(64, 13, 16, seed=1)
+    batch[0][5] = bad_row
+    with pytest.raises(IndexError, match="outside"):
+        tt.pack_batch(batch[0], batch[1:], 64, "cpu")
+    with pytest.raises(IndexError, match="outside"):
+        tt.pack_batch(batch[0], [sd[f] for f in MIRROR], 64, "cpu", take=True)
+
+
+def test_pack_refuses_other_dtypes_and_shapes():
+    sd, batch = scatter_case(64, 13, 16, seed=2)
+    with pytest.raises(TypeError, match="rows"):
+        tt.pack_batch(batch[0].astype(np.int64), batch[1:], 64, "cpu")
+    with pytest.raises(TypeError, match="active"):
+        tt.pack_batch(batch[0], batch[1:6] + [batch[6].astype(np.uint8)] + batch[7:], 64, "cpu")
+    with pytest.raises(TypeError, match="features"):
+        tt.pack_batch(batch[0], [sd[f] for f in MIRROR], 64, "cpu")  # whole columns, no take
+
+
+def test_scatter_rows_refuses_a_batch_off_the_host():
+    """The batch crosses to the card in the wrapper's one copy: a batch
+    already on a device is refused, not moved (chip_smoke.py and
+    tests/test_torch_isolation.py check a batch on the card)."""
+    _, ts = to_torch(*start("pod-general", n=64)[2:])
+    batch = [torch.from_numpy(a) for a in mid_run_batch(ts, np.random.default_rng(7))]
+    batch[1] = batch[1].to("meta")
+    with pytest.raises(ValueError, match="host memory"):
+        tt.scatter_rows(ts, *batch)
