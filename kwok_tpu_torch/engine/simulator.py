@@ -26,10 +26,12 @@ from __future__ import annotations
 import datetime
 import hashlib
 import json
+import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from kwok_tpu_torch.api.types import Stage
 from kwok_tpu_torch.engine.compiler import (
@@ -60,6 +62,7 @@ from kwok_tpu_torch.parallel.mesh import (
     shard_rows,
     sharded_tick,
 )
+from kwok_tpu_torch.utils import telemetry as _telemetry
 from kwok_tpu_torch.utils.patch import apply_patch
 
 DEFAULT_EPOCH = datetime.datetime(2026, 1, 1, tzinfo=datetime.timezone.utc)
@@ -70,6 +73,77 @@ DEFAULT_EPOCH = datetime.datetime(2026, 1, 1, tzinfo=datetime.timezone.utc)
 #: epoch forward and rebases every timer column so long record/replay
 #: runs never approach the edge.
 REBASE_AT_MS = 2**30
+
+#: observed time of each phase of a simulator's work, by resource kind:
+#: set-up (``compile``, ``kernels``), a macro-tick (``launch``: argument
+#: checks, output allocation and the launch; ``fetch``: the wait for the
+#: kernel and the copy of its fired stages to the host), and the host
+#: mirror's full ``upload``/``sync``, ``flush`` and ``rebase``, which
+#: break the "only dirty rows cross the boundary" contract when they
+#: recur.  A phase is observed only when it does work, so each series'
+#: ``_count`` counts it.  Phases never nest.  The buckets start at 10 us
+#: (a launch) and reach a kernel build with nvcc.
+_H_PHASE = _telemetry.histogram(
+    "kwok_sim_phase_seconds",
+    help="DeviceSimulator phase time (compile/kernels/upload/flush/sync/rebase/launch/fetch)",
+    buckets=(
+        1e-5, 2.5e-5, 5e-5, 1e-4, 2.5e-4, 5e-4, 1e-3, 2.5e-3, 5e-3, 0.01, 0.025,
+        0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+    ),
+    labelnames=("kind", "phase"),
+)
+
+
+class _Span:
+    """Times one phase into ``kwok_sim_phase_seconds`` and, while a
+    ``torch.profiler`` records, marks it as the range ``kwok.sim.<phase>``
+    on the profiler's timeline, the clock of the kernels and copies it
+    issues.  With no profiler recording it enters no range.  Observation
+    only: nothing it measures feeds back into the simulator.
+
+    The range is torch's C++ ``RecordFunctionFast`` (what its compiler
+    marks kernels with; a ``cpu_op`` in the trace): on an H100's host it
+    costs 1.8 us a range, ``record_function``'s Python wrapper 11 us, most
+    of it outside the range, where the trace charges it to the caller."""
+
+    __slots__ = ("kind", "phase", "_range", "_t0")
+
+    def __init__(self, kind: str, phase: str):
+        self.kind = kind
+        self.phase = phase
+
+    def __enter__(self) -> None:
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = torch._C._profiler._RecordFunctionFast("kwok.sim." + self.phase)
+            self._range.__enter__()
+        else:
+            self._range = None
+        self._t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> None:
+        seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        _H_PHASE.observe(seconds, self.kind, self.phase)
+
+
+class _Total(_Span):
+    """A :class:`_Span` whose entries add up to one observation, made by
+    :meth:`observe`: a per-tick loop's phase, observed once a call."""
+
+    __slots__ = ("seconds",)
+
+    def __init__(self, kind: str, phase: str):
+        super().__init__(kind, phase)
+        self.seconds = 0.0
+
+    def __exit__(self, *exc) -> None:
+        self.seconds += time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+
+    def observe(self) -> None:
+        _H_PHASE.observe(self.seconds, self.kind, self.phase)
 
 
 def default_env_funcs() -> Dict[str, Callable]:
@@ -145,9 +219,13 @@ class DeviceSimulator:
             if device is not None and torch.device(device).type != self.device.type:
                 raise ValueError(f"device {device} is not the mesh's kind: {mesh}")
             capacity = pad_rows(capacity, self._n_shards)
+        #: resource kind of the stages: the ``kind`` of the phase spans
+        self.kind = stages[0].resource_ref.kind if stages else ""
         # the kernels are built now, not at a first tick under a caller's lock
-        load_kernels(self.device)
-        self.cset = CompiledStageSet(stages)
+        with _Span(self.kind, "kernels"):
+            load_kernels(self.device)
+        with _Span(self.kind, "compile"):
+            self.cset = CompiledStageSet(stages)
         self.capacity = capacity
         self.epoch = epoch
         self.env_funcs = dict(env_funcs) if env_funcs is not None else default_env_funcs()
@@ -331,12 +409,13 @@ class DeviceSimulator:
         if self._soa is None:
             self._pending.clear()
             return
-        rows = np.fromiter(self._pending, np.int32, len(self._pending))
-        self._pending.clear()
-        columns = tuple(getattr(self, f) for f in ROW_FIELDS)
-        batch = pack_batch(rows, columns, self._soa.features.shape[0], self.device, take=True)
-        self._soa = scatter_packed(self._soa, batch)
-        self._rematch_pending = True
+        with _Span(self.kind, "flush"):
+            rows = np.fromiter(self._pending, np.int32, len(self._pending))
+            self._pending.clear()
+            columns = tuple(getattr(self, f) for f in ROW_FIELDS)
+            batch = pack_batch(rows, columns, self._soa.features.shape[0], self.device, take=True)
+            self._soa = scatter_packed(self._soa, batch)
+            self._rematch_pending = True
 
     def _invalidate_device(self) -> None:
         """Pull device progress into the host arrays (so a host mutation
@@ -481,21 +560,24 @@ class DeviceSimulator:
         if self._soa is not None:
             self._flush_pending()
         if self._soa is None:
-            now = (
-                self._dev_now
-                if self._dev_now is not None
-                else torch.zeros((), dtype=torch.int32, device=self.device)
-            )
-            key = self._dev_key if self._dev_key is not None else prng_key(self._seed, self.device)
-            if self.mesh is None:
-                self._soa = SoA(
-                    **{f: self._upload(getattr(self, f)) for f in ROW_FIELDS}, now=now, key=key
+            with _Span(self.kind, "upload"):
+                now = (
+                    self._dev_now
+                    if self._dev_now is not None
+                    else torch.zeros((), dtype=torch.int32, device=self.device)
                 )
-            else:
-                # shard_rows copies each block onto its shard's device
-                host = {f: torch.from_numpy(getattr(self, f)) for f in ROW_FIELDS}
-                self._soa = shard_rows(SoA(**host, now=now, key=key), self.mesh)
-            self._rematch_pending = bool(self.rematch.any())
+                key = (
+                    self._dev_key if self._dev_key is not None else prng_key(self._seed, self.device)
+                )
+                if self.mesh is None:
+                    self._soa = SoA(
+                        **{f: self._upload(getattr(self, f)) for f in ROW_FIELDS}, now=now, key=key
+                    )
+                else:
+                    # shard_rows copies each block onto its shard's device
+                    host = {f: torch.from_numpy(getattr(self, f)) for f in ROW_FIELDS}
+                    self._soa = shard_rows(SoA(**host, now=now, key=key), self.mesh)
+                self._rematch_pending = bool(self.rematch.any())
         return self._params, self._soa
 
     def _tick_fn(self, dt_ms: int):
@@ -530,10 +612,18 @@ class DeviceSimulator:
             # int32 here on purpose: this branch exists (in part)
             # because int8 cannot hold >126 stage indices
             outs = []
+            # launch and fetch are observed once a call, as on the macro-tick path
+            launch = _Total(self.kind, "launch")
+            fetch = _Total(self.kind, "fetch")
             for _ in range(n_ticks):
-                soa, out = self._tick_fn(dt_ms)(params, soa)
+                with launch:
+                    soa, out = self._tick_fn(dt_ms)(params, soa)
                 fired = out.fired_stage
-                outs.append((fired.cpu() if self.mesh is None else fired.to_host()).numpy())
+                with fetch:
+                    outs.append((fired.cpu() if self.mesh is None else fired.to_host()).numpy())
+            if n_ticks:
+                launch.observe()
+                fetch.observe()
             self._soa = soa
             stages_np = np.stack(outs) if outs else np.empty((0, 0), np.int32)
             self._now_host = t0_ms + dt_ms * n_ticks
@@ -542,7 +632,9 @@ class DeviceSimulator:
                 self._rematch_pending = False
             return stages_np, t0_ms
         stages, t0_ms = self.tick_many_async(dt_ms, n_ticks)
-        return stages.cpu().numpy(), t0_ms
+        with _Span(self.kind, "fetch"):
+            fired = stages.cpu().numpy()
+        return fired, t0_ms
 
     def num_stages_over_int8(self) -> bool:
         return len(self.cset.compiled) > 126
@@ -564,7 +656,8 @@ class DeviceSimulator:
             self._rebase()
         t0_ms = self._now_host
         params, soa = self.to_device()
-        new_soa, stages = run_ticks_collect(params, soa, dt_ms, n_ticks)
+        with _Span(self.kind, "launch"):
+            new_soa, stages = run_ticks_collect(params, soa, dt_ms, n_ticks)
         self._soa = new_soa
         self._now_host = t0_ms + dt_ms * n_ticks
         # pessimistic: fired rows are not visible until the fetch
@@ -606,13 +699,15 @@ class DeviceSimulator:
         delta = int(self._dev_now) if self._dev_now is not None else 0
         if delta <= 0:
             return
-        self.epoch = self.epoch + datetime.timedelta(milliseconds=delta)
-        live = self.fire_at != NEVER
-        self.fire_at[live] = self.fire_at[live] - delta
-        dl = self.del_ts != SENTINEL
-        self.del_ts[dl] = self.del_ts[dl] - delta
-        self._dev_now = torch.zeros((), dtype=torch.int32, device=self.device)
-        self._now_host = 0
+        # the download above is a ``sync`` of its own: phases never nest
+        with _Span(self.kind, "rebase"):
+            self.epoch = self.epoch + datetime.timedelta(milliseconds=delta)
+            live = self.fire_at != NEVER
+            self.fire_at[live] = self.fire_at[live] - delta
+            dl = self.del_ts != SENTINEL
+            self.del_ts[dl] = self.del_ts[dl] - delta
+            self._dev_now = torch.zeros((), dtype=torch.int32, device=self.device)
+            self._now_host = 0
 
     def _ensure_synced(self) -> None:
         if self._soa is None:
@@ -633,15 +728,16 @@ class DeviceSimulator:
                 return soa.column(name).to_host().numpy()
             return getattr(soa, name).cpu().numpy().copy()
 
-        self.stage = column("stage")
-        self.fire_at = column("fire_at")
-        self.active = column("active")
-        self.features = column("features")
-        # the true device value, NOT zeros: rows scattered with
-        # rematch=True that have not ticked yet must keep the flag
-        # across a re-upload or they never arm (found as stuck rows
-        # admitted right before a capacity growth)
-        self.rematch = column("rematch")
+        with _Span(self.kind, "sync"):
+            self.stage = column("stage")
+            self.fire_at = column("fire_at")
+            self.active = column("active")
+            self.features = column("features")
+            # the true device value, NOT zeros: rows scattered with
+            # rematch=True that have not ticked yet must keep the flag
+            # across a re-upload or they never arm (found as stuck rows
+            # admitted right before a capacity growth)
+            self.rematch = column("rematch")
         self._host_synced = True
 
     # ------------------------------------------------------------- materialization
