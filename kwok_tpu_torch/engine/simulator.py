@@ -77,7 +77,8 @@ REBASE_AT_MS = 2**30
 #: observed time of each phase of a simulator's work, by resource kind:
 #: set-up (``compile``, ``kernels``), a macro-tick (``launch``: argument
 #: checks, output allocation and the launch; ``fetch``: the wait for the
-#: kernel and the copy of its fired stages to the host), and the host
+#: kernel and the copy of its fired stages to the host, on the card one
+#: copy into pinned memory, see ``kwok_sim_fetch_bytes``), and the host
 #: mirror's full ``upload``/``sync``, ``flush`` and ``rebase``, which
 #: break the "only dirty rows cross the boundary" contract when they
 #: recur.  A phase is observed only when it does work, so each series'
@@ -92,6 +93,45 @@ _H_PHASE = _telemetry.histogram(
     ),
     labelnames=("kind", "phase"),
 )
+
+
+#: bytes of fired stages a ``tick_many`` call brings to the host, by
+#: resource kind and by the host memory they land in: ``pinned`` (the card's
+#: int8 macro-tick, one copy into a block of torch's pinned-memory caching
+#: allocator), ``pageable`` (the mesh's and the >126-stage per-tick copies
+#: on the card) or ``host`` (a CPU simulator: the fired stages already are
+#: in host memory, nothing is copied).  Observed once a call, beside the
+#: ``fetch`` phase, so each ``_count`` counts the calls that took that way.
+_H_FETCH = _telemetry.histogram(
+    "kwok_sim_fetch_bytes",
+    help="DeviceSimulator fired-stage bytes fetched a tick_many call, by host memory (pinned/pageable/host)",
+    buckets=(1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9),
+    labelnames=("kind", "memory"),
+)
+
+
+def _fetch(stages: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """The fired stages in host memory once the kernel that writes them
+    has run, and the memory they are in (a label of ``kwok_sim_fetch_bytes``).
+
+    On the card: one non-blocking copy, on the current stream behind the
+    kernel, into a fresh tensor from torch's pinned-memory caching
+    allocator, then a wait on an event recorded after it (that stream
+    alone, not the whole device).  The array keeps its pinned tensor
+    alive, so the allocator hands the block out again only once the
+    caller drops the array: no later call writes into an array the caller
+    still holds.  A caller that holds many arrays holds as many pinned
+    blocks (the same bytes it held pageable before), and freed blocks stay
+    cached for the life of the process.  On the CPU the tensor already is
+    the host copy."""
+    if stages.device.type != "cuda":
+        return stages.numpy(), "host"
+    host = torch.empty(stages.shape, dtype=stages.dtype, pin_memory=True)
+    host.copy_(stages, non_blocking=True)
+    copied = torch.cuda.Event()
+    copied.record(torch.cuda.current_stream(stages.device))
+    copied.synchronize()
+    return host.numpy(), "pinned"
 
 
 class _Span:
@@ -602,8 +642,13 @@ class DeviceSimulator:
         moves only this [K, N] int8 across the boundary — "only dirty
         rows come back" at 1M rows.
 
+        On the card that transfer is one copy into pinned host memory
+        (:func:`_fetch`): each call returns an array of its own, which
+        keeps its pinned block until the caller drops it.
+
         On a mesh, and for stage sets past int8, it ticks one tick at a
-        time and returns int32 [K, N], every row in order."""
+        time and returns int32 [K, N], every row in order, fetched into
+        pageable memory a tick at a time."""
         if self.mesh is not None or self.num_stages_over_int8():
             if self.now_ms >= REBASE_AT_MS:
                 self._rebase()
@@ -621,11 +666,13 @@ class DeviceSimulator:
                 fired = out.fired_stage
                 with fetch:
                     outs.append((fired.cpu() if self.mesh is None else fired.to_host()).numpy())
+            self._soa = soa
+            stages_np = np.stack(outs) if outs else np.empty((0, 0), np.int32)
             if n_ticks:
                 launch.observe()
                 fetch.observe()
-            self._soa = soa
-            stages_np = np.stack(outs) if outs else np.empty((0, 0), np.int32)
+                memory = "host" if self.device.type == "cpu" else "pageable"
+                _H_FETCH.observe(stages_np.nbytes, self.kind, memory)
             self._now_host = t0_ms + dt_ms * n_ticks
             if (stages_np >= 0).any() or self._rematch_pending:
                 self._host_synced = False
@@ -633,7 +680,8 @@ class DeviceSimulator:
             return stages_np, t0_ms
         stages, t0_ms = self.tick_many_async(dt_ms, n_ticks)
         with _Span(self.kind, "fetch"):
-            fired = stages.cpu().numpy()
+            fired, memory = _fetch(stages)
+        _H_FETCH.observe(fired.nbytes, self.kind, memory)
         return fired, t0_ms
 
     def num_stages_over_int8(self) -> bool:

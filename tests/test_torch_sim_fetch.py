@@ -1,0 +1,176 @@
+"""The blocking fetch of the port's DeviceSimulator.tick_many.
+
+The int8 macro-tick's fired stages come to the host once the kernel has
+run: on the card by one copy into pinned memory, on the CPU as the
+kernel's own output.  Either way the array is the caller's: a later call
+never writes into it, and it equals ``run_ticks_collect``'s output
+fetched by hand, bit for bit.  ``kwok_sim_fetch_bytes{kind,memory}``
+counts each call's bytes by the memory they land in.  The tests marked
+``cuda`` skip without a card (``python -m pytest --noconftest -q
+tests/test_torch_sim_fetch.py`` on it).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from kwok_tpu_torch.engine import simulator as simmod
+from kwok_tpu_torch.engine.simulator import DeviceSimulator
+from kwok_tpu_torch.ops.tick import load_kernels, run_ticks_collect
+from kwok_tpu_torch.stages import default_node_stages, load_builtin
+from kwok_tpu_torch.utils import telemetry
+
+CHAOS = {"pod-container-running-failed.stage.kwok.x-k8s.io": "true"}
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def pod(i=0, labels=None):
+    meta = {"name": f"p{i}", "namespace": "d", "uid": f"u{i}"}
+    if labels:
+        meta["labels"] = labels
+    return {
+        "apiVersion": "v1",
+        "kind": "Pod",
+        "metadata": meta,
+        "spec": {"nodeName": "n0", "containers": [{"name": "c", "image": "img"}]},
+        "status": {},
+    }
+
+
+def pod_sim(device, seed=0, rows=200, capacity=256):
+    stages = load_builtin("pod-general") + load_builtin("pod-chaos")
+    sim = DeviceSimulator(stages, capacity=capacity, seed=seed, device=device)
+    sim.admit_bulk(pod(labels=CHAOS), rows)
+    return sim
+
+
+@pytest.fixture(autouse=True)
+def fresh_family():
+    """An empty fetch family, telemetry armed, for each test (the family
+    is process-global; it is cleared in place, never replaced)."""
+    prev = telemetry.set_enabled(True)
+    simmod._H_FETCH.clear()
+    yield
+    simmod._H_FETCH.clear()
+    telemetry.set_enabled(prev)
+
+
+def fetches():
+    """{(kind, memory): (observations, bytes)}."""
+    return {lv: (c["count"], c["sum"]) for lv, c in simmod._H_FETCH.snapshot().items()}
+
+
+def by_hand(device, seed, calls, K=8, dt=250):
+    """``run_ticks_collect`` on a twin simulator's device state, each
+    output fetched with a plain ``.cpu()`` and copied."""
+    twin = pod_sim(device, seed)
+    params, soa = twin.to_device()
+    out = []
+    for _ in range(calls):
+        soa, stages = run_ticks_collect(params, soa, dt, K)
+        out.append(stages.cpu().numpy().copy())
+    return out
+
+
+def check_bit_identical(device, seed):
+    sim = pod_sim(device, seed)
+    got = [sim.tick_many(250, 8)[0] for _ in range(6)]
+    want = by_hand(device, seed, 6)
+    assert sum(int((w >= 0).sum()) for w in want) > 0
+    for g, w in zip(got, want):
+        assert g.dtype == np.int8 and g.shape == w.shape == (8, 256)
+        assert np.array_equal(g, w)
+
+
+def check_arrays_are_the_callers(device):
+    sim = pod_sim(device)
+    first, _ = sim.tick_many(250, 8)
+    kept = first.copy()
+    second, _ = sim.tick_many(250, 8)
+    assert not np.shares_memory(first, second)
+    assert np.array_equal(first, kept)
+    # a third call, with the second dropped, writes into neither survivor
+    del second
+    third, _ = sim.tick_many(250, 8)
+    assert not np.shares_memory(first, third)
+    assert np.array_equal(first, kept)
+    return first, third
+
+
+@pytest.mark.parametrize("seed", [0, 7, 3_000_000_019])
+def test_fired_stages_equal_run_ticks_collect_fetched_by_hand(seed):
+    check_bit_identical("cpu", seed)
+
+
+def test_successive_calls_return_arrays_of_their_own():
+    check_arrays_are_the_callers("cpu")
+
+
+def test_host_fetch_counts_one_observation_a_call_with_k_times_n_bytes():
+    sim = pod_sim("cpu")
+    node = DeviceSimulator(default_node_stages(lease=True), capacity=40, device="cpu")
+    for k in (8, 8, 3):
+        sim.tick_many(100, k)
+    node.tick_many(100, 8)
+    assert fetches() == {("Pod", "host"): (3, 256 * 19), ("Node", "host"): (1, 40 * 8)}
+
+
+def test_nothing_is_counted_under_kwok_telemetry_0():
+    """The environment variable, read when the process starts."""
+    code = textwrap.dedent("""
+        import sys
+        sys.path.insert(0, sys.argv[1])
+        from kwok_tpu_torch.engine import simulator as simmod
+        from kwok_tpu_torch.engine.simulator import DeviceSimulator
+        from kwok_tpu_torch.stages import default_node_stages
+        sim = DeviceSimulator(default_node_stages(lease=True), capacity=16, device="cpu")
+        for _ in range(3):
+            sim.tick_many(100, 8)
+        print(len(simmod._H_FETCH.snapshot()), len(simmod._H_PHASE.snapshot()))
+    """)
+    env = dict(os.environ, KWOK_TELEMETRY="0")
+    out = subprocess.run([sys.executable, "-c", code, ROOT], env=env, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.split() == ["0", "0"]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the pinned fetch runs on the card only")
+    load_kernels(torch.device("cuda"))
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 3_000_000_019])
+def test_card_fired_stages_equal_run_ticks_collect_fetched_by_hand(cuda_device, seed):
+    check_bit_identical(cuda_device, seed)
+
+
+@pytest.mark.cuda
+def test_card_arrays_are_the_callers_and_pinned(cuda_device, monkeypatch):
+    def no_device_sync(*a, **k):
+        raise AssertionError("the fetch waits on its own copy, not the whole device")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_device_sync)
+    arrays = check_arrays_are_the_callers(cuda_device)
+    for a in arrays:
+        assert isinstance(a.base, torch.Tensor) and a.base.is_pinned()
+    assert fetches() == {("Pod", "pinned"): (3, 3 * 8 * 256)}
+
+
+@pytest.mark.cuda
+def test_card_pinned_count_grows_by_one_a_call(cuda_device):
+    sim = pod_sim(cuda_device)
+    node = DeviceSimulator(default_node_stages(lease=True), capacity=40, device=cuda_device)
+    for i in range(1, 5):
+        sim.tick_many(100, 8)
+        node.tick_many(100, 8)
+        assert fetches() == {("Pod", "pinned"): (i, i * 8 * 256),
+                             ("Node", "pinned"): (i, i * 8 * 40)}

@@ -51,8 +51,10 @@ def fresh_family():
     process-global; it is cleared in place, never replaced)."""
     prev = telemetry.set_enabled(True)
     simmod._H_PHASE.clear()
+    simmod._H_FETCH.clear()
     yield
     simmod._H_PHASE.clear()
+    simmod._H_FETCH.clear()
     telemetry.set_enabled(prev)
 
 
@@ -124,7 +126,8 @@ def test_upload_once_after_admit_bulk_and_flush_only_with_rows_pending():
 
 def test_per_tick_branch_counts_calls_not_ticks():
     """Past 126 stages tick_many ticks one tick at a time; its launch and
-    fetch are still one observation a call."""
+    fetch are still one observation a call, and so are its fetched int32
+    bytes (``host`` on the CPU: nothing is copied)."""
     stages = load_builtin("pod-general")
     for g in range(5):
         for v in range(26):
@@ -144,6 +147,10 @@ def test_per_tick_branch_counts_calls_not_ticks():
         assert out.shape == (5, 8)
     c = counts()
     assert c[("Pod", "launch")] == 2 and c[("Pod", "fetch")] == 2
+    fetched = simmod._H_FETCH.snapshot()
+    assert list(fetched) == [("Pod", "host")]
+    assert fetched[("Pod", "host")]["count"] == 2
+    assert fetched[("Pod", "host")]["sum"] == 2 * 5 * 8 * 4
 
 
 def run(seed):
