@@ -24,8 +24,10 @@ practice since runs are restartable from snapshots.
 from __future__ import annotations
 
 import datetime
+import functools
 import hashlib
 import json
+import threading
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -34,7 +36,7 @@ import torch
 from torch.autograd import profiler as _autograd_profiler
 
 from kwok_tpu_torch.api.types import Stage
-from kwok_tpu_torch.engine.behaviour import Regions
+from kwok_tpu_torch.engine.behaviour import ITER, Regions
 from kwok_tpu_torch.engine.compiler import (
     IDLE,
     NEVER,
@@ -140,11 +142,17 @@ class _Gauge:
         values = self.snapshot()
         if not values:
             return []
-        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]
+        lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} {self.TYPE}"]
         for lv in sorted(values):
             labels = ",".join(f'{k}="{v}"' for k, v in zip(self.labelnames, lv))
-            lines.append(f"{self.name}{{{labels}}} {values[lv]:g}")
+            lines.append(f"{self.name}{{{labels}}} {self._text(values[lv])}")
         return lines
+
+    TYPE = "gauge"
+
+    @staticmethod
+    def _text(value: float) -> str:
+        return f"{value:g}"
 
     # the registry's summary and reset read every family alike
     def total_count(self) -> int:
@@ -155,6 +163,39 @@ class _Gauge:
 
     def clear(self) -> None:
         self._values.clear()
+
+
+class _Counter(_Gauge):
+    """A counter family in the process's telemetry registry: whole counts
+    a label set, only ever incremented, exposed as a Prometheus counter."""
+
+    TYPE = "counter"
+
+    def __init__(self, name: str, help: str, labelnames: Tuple[str, ...]):
+        super().__init__(name, help, labelnames)
+        self._mut = threading.Lock()
+
+    def inc(self, *labelvalues: str) -> None:
+        if _telemetry.enabled():
+            with self._mut:
+                self._values[labelvalues] = self._values.get(labelvalues, 0) + 1
+
+    @staticmethod
+    def _text(value: int) -> str:
+        return str(value)
+
+
+#: the admission keys (signature and regions, ``_classify``) a simulator
+#: built, by resource kind and by the path they took: ``native`` (one pass
+#: of ``native/admitkeys.c`` over the object) or ``plain`` (the object's
+#: JSON-standard walk and ``json.dumps`` of each key, for objects the pass
+#: refuses or where the extension is not built).  A ``plain`` count that
+#: grows says objects, or a machine with no toolchain, miss the fast path.
+_C_ADMIT_KEYS = _Counter(
+    "kwok_sim_admit_keys_total",
+    "DeviceSimulator admission keys built, by path (native/plain)",
+    ("kind", "path"),
+)
 
 
 #: the effect-table rows the card holds for a simulator's tick, by
@@ -299,6 +340,25 @@ class _Exploration(_Span):
             self._admission.resume()
 
 
+def _native_keys(regions: Regions) -> Optional[Callable[[dict], Optional[tuple]]]:
+    """The native pass of ``_classify``'s keys over ``regions``' trie:
+    ``obj -> (signature text, regions key)``, or None for an object it
+    refuses; None where the extension is not built (``KWOK_TPU_NATIVE=0``
+    or no toolchain) or the set has no regions key (no class cache: every
+    object's row is extracted in Python anyway)."""
+    if regions.trie is None:
+        return None
+    try:
+        from kwok_tpu_torch.native.admitkeys import load
+
+        mod = load()
+    except ImportError:
+        return None
+    if mod is None:
+        return None
+    return functools.partial(mod.keys, mod.compile_trie(regions.trie, ITER))
+
+
 def default_env_funcs() -> Dict[str, Callable]:
     """Deterministic NodeIP/PodIP-style funcs for materialization
     (reference: node_controller.go:521-531, pod_controller.go:559-615
@@ -407,6 +467,7 @@ class DeviceSimulator:
         # the parts of an object they are read from (``Regions``): a pod's
         # node, name, owner names and unselected labels are not among them.
         self._regions = Regions(self.cset)
+        self._native_keys = _native_keys(self._regions)
         self._class_cache: Dict[str, Tuple[int, np.ndarray, Any, Optional[str]]] = {}
         self._admission: Optional[_Admission] = None
         self.cset.behaviours.exploring = self._exploring
@@ -428,17 +489,32 @@ class DeviceSimulator:
 
     # ------------------------------------------------------------------ host ops
 
-    def _classify(self, obj: dict) -> Tuple[int, int, np.ndarray, int]:
-        """(sig, ovc, features, behaviour) of a JSON-standard object.
-        Shared by admit and refresh_row.  The signature is the spec's, as
-        the reference numbers it; the rest is cached by the parts of the
-        object it is read from, so a pod that differs from one seen before
-        only in its node, name, owner or unselected labels costs two
-        json.dumps and no exploration."""
+    def _classify(self, obj: dict,
+                  standardize: bool = False) -> Tuple[dict, int, int, np.ndarray, int]:
+        """(obj, sig, ovc, features, behaviour) of an object, made
+        JSON-standard first when ``standardize``.  Shared by admit and
+        refresh_row.  The signature is the spec's, as the reference numbers
+        it; the rest is cached by the parts of the object it is read from,
+        so a pod that differs from one seen before only in its node, name,
+        owner or unselected labels costs its two keys and no exploration.
+
+        The keys come from one native pass over the object where it
+        accepts it: an object it accepts is JSON-standard, and its texts are
+        those the Python path hashes and compares, byte for byte.  An
+        object it refuses takes the Python path as before."""
         cset = self.cset
         behaviours = cset.behaviours
-        sig_key = cset._signature_key(obj)
-        region = self._regions.key(obj)
+        keys = None if self._native_keys is None else self._native_keys(obj)
+        if keys is None:
+            _C_ADMIT_KEYS.inc(self.kind, "plain")
+            if standardize:
+                obj = to_json_standard(obj)
+            sig_key = cset._signature_key(obj)
+            region = self._regions.key(obj)
+        else:
+            _C_ADMIT_KEYS.inc(self.kind, "native")
+            text, region = keys
+            sig_key = hashlib.sha1(text.encode()).hexdigest()
         hit = self._class_cache.get(region) if region is not None else None
         if hit is None:
             behaviour = None if behaviours.kept is None else behaviours.behaviour_key(obj, sig_key)
@@ -450,7 +526,7 @@ class DeviceSimulator:
                 self._class_cache[region] = hit
         ovc, feats, state, behaviour = hit
         sig = behaviours.bind(obj, sig_key, state, behaviour)
-        return sig, ovc, feats, behaviours.card_row(sig)
+        return obj, sig, ovc, feats, behaviours.card_row(sig)
 
     def _exploring(self):
         """The ``explore`` phase around one exploration, cut out of the
@@ -463,7 +539,7 @@ class DeviceSimulator:
         host values reach the device as part of the next tick's batched
         scatter (see _flush_pending) — no full re-upload."""
         with _Admission(self):
-            obj = to_json_standard(obj)
+            obj, sig, ovc, feats, behaviour = self._classify(obj, standardize=True)
             self._pre_mutate()
             if self._free:
                 row = self._free.pop()
@@ -472,7 +548,6 @@ class DeviceSimulator:
                     self.ensure_capacity(self.num_rows + 1)
                 row = self.num_rows
                 self.num_rows += 1
-            sig, ovc, feats, behaviour = self._classify(obj)
             self.sig[row] = sig
             self.behaviour[row] = behaviour
             self.ovc[row] = ovc
@@ -494,7 +569,7 @@ class DeviceSimulator:
         if count <= 0:
             return range(0, 0)
         with _Admission(self):
-            obj = to_json_standard(obj)
+            obj, sig, ovc, feats, behaviour = self._classify(obj, standardize=True)
             start = self.num_rows
             self.ensure_capacity(start + count)
             if self._soa is not None:
@@ -502,7 +577,6 @@ class DeviceSimulator:
                 # giant scatter here
                 self._invalidate_device()
             sl = slice(start, start + count)
-            sig, ovc, feats, behaviour = self._classify(obj)
             self.sig[sl] = sig
             self.behaviour[sl] = behaviour
             self.ovc[sl] = ovc
@@ -632,8 +706,7 @@ class DeviceSimulator:
         resourceVersion dedup + addStageJob), so a reset, not a carried
         timer, is the parity-correct behavior."""
         self._pre_mutate()
-        obj = self.objects[row]
-        sig, ovc, feats, behaviour = self._classify(obj)
+        obj, sig, ovc, feats, behaviour = self._classify(self.objects[row])
         self.features[row] = feats
         self.ovc[row] = ovc
         self.sig[row] = sig

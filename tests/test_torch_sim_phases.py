@@ -514,6 +514,6 @@ def test_the_benchmark_lists_the_admission_readers_for_the_placed_cell():
         assert m["workloads"] == ["placed-mixed-10k.sim"] and m["source"] == "host_clock"
         assert m["moves"] == "setup_s" and m["layer"] == "setup"
     cell = spec.load_cell("placed-mixed-10k.sim")
-    assert set(ADMISSION_READERS) | {"kernel.tick_collect.roofline", "device.idle_share.sim"} == set(
-        cell.readers)
+    assert set(ADMISSION_READERS) | {"kernel.tick_collect.roofline", "device.idle_share.sim",
+                                     "setup.admit_native_share"} == set(cell.readers)
     assert {m.name for m in cell.end_to_end} == {"sim_macro_tick_ms", "setup_s"}
