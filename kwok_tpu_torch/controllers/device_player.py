@@ -19,8 +19,9 @@ facade falls back to the host backend for that kind.
 Port of ``kwok_tpu/controllers/device_player.py``: the simulator is the
 port's ``DeviceSimulator`` on ``device`` (the card unless the caller
 names one), and the overlapped macro-tick fetches its fired-stage batch
-with a non-blocking copy into pinned host memory on a side CUDA stream.
-The drain is the reference's, line for line.
+through the simulator's own fetch (``DeviceSimulator.start_fetch``), the
+copy its blocking ``tick_many`` makes.  The drain is the reference's,
+line for line.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
-import torch
 
 from kwok_tpu_torch.api.types import Stage
 from kwok_tpu_torch.cluster.informer import Informer, InformerEvent, WatchOptions
@@ -126,8 +126,6 @@ class DeviceStagePlayer:
         self.sim = DeviceSimulator(
             stages, capacity=capacity, seed=seed, mesh=mesh, device=device
         )
-        #: side stream of the pipelined fetch (created on first use)
-        self._copy_stream: Optional[torch.cuda.Stream] = None
         self._informer = Informer(store, kind)
         self.events: Queue = Queue()
         #: (namespace, name) -> row
@@ -230,8 +228,8 @@ class DeviceStagePlayer:
             and hasattr(store, "status_lane")
         )
         self._namespaced: Optional[bool] = None
-        #: in-flight macro-tick (host copy handle, t0_ms, dt) for the
-        #: overlapped step_pipelined path
+        #: in-flight macro-tick (the simulator's fetch handle, t0_ms,
+        #: dt) for the overlapped step_pipelined path
         self._inflight = None
         # virtual-time anchor: device ms 0 == clock.now() at start
         self._t0: Optional[float] = None
@@ -622,7 +620,7 @@ class DeviceStagePlayer:
         switching a run loop between the two flavors never silently
         stops heartbeats."""
         dt = dt_ms if dt_ms is not None else self.tick_ms
-        if self.sim.mesh is not None or self.sim.num_stages_over_int8():
+        if self.sim.per_tick:
             # step_batch flushes any in-flight batch first (ordering)
             return self.step_batch(dt, n_ticks)
         base = (self.t_device, self.t_store, self.t_host, self.t_build)
@@ -630,14 +628,14 @@ class DeviceStagePlayer:
         t0 = time.perf_counter()
         stages_dev, t0_ms = self.sim.tick_many_async(dt, n_ticks)
         # start the device->host copy NOW so it overlaps the drain
-        # below; the next call's fetch then returns at once
-        self._inflight = (self._copy_to_host_async(stages_dev), t0_ms, dt)
+        # below; the next call's wait then returns at once
+        self._inflight = (self.sim.start_fetch(stages_dev), t0_ms, dt)
         self.t_device += time.perf_counter() - t0
         fired = 0
         if prev is not None:
-            p_stages, p_t0, p_dt = prev
+            p_fetch, p_t0, p_dt = prev
             t1 = time.perf_counter()
-            stages_np = self._fetch(p_stages)
+            stages_np = p_fetch.wait()
             self.t_device += time.perf_counter() - t1
             fired = self._drain_stages(stages_np, p_t0, p_dt)
         self._run_post_tick()
@@ -649,42 +647,9 @@ class DeviceStagePlayer:
         prev, self._inflight = self._inflight, None
         if prev is None:
             return 0
-        stages_host, t0_ms, dt = prev
-        stages_np = self._fetch(stages_host)
+        fetch, t0_ms, dt = prev
+        stages_np = fetch.wait()
         return self._drain_stages(stages_np, t0_ms, dt)
-
-    def _copy_to_host_async(self, stages_dev: torch.Tensor):
-        """Start copying a fired-stage batch to the host; returns the
-        handle :meth:`_fetch` takes.  On the card: a non-blocking copy
-        into a fresh pinned host tensor (so a later dispatch never
-        overwrites a batch the drain still reads) on a side stream that
-        waits on an event recorded after the tick launch; the device
-        tensor is kept alive for the side stream until the copy ends.
-        On the CPU the tensor already is the host copy."""
-        if stages_dev.device.type != "cuda":
-            return stages_dev, None
-        dev = stages_dev.device
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=dev)
-        side = self._copy_stream
-        launched = torch.cuda.Event()
-        launched.record(torch.cuda.current_stream(dev))
-        host = torch.empty(stages_dev.shape, dtype=stages_dev.dtype, pin_memory=True)
-        copied = torch.cuda.Event()
-        with torch.cuda.stream(side):
-            side.wait_event(launched)
-            host.copy_(stages_dev, non_blocking=True)
-            stages_dev.record_stream(side)
-            copied.record(side)
-        return host, copied
-
-    @staticmethod
-    def _fetch(handle) -> np.ndarray:
-        """Wait for a :meth:`_copy_to_host_async` copy; its numpy view."""
-        host, copied = handle
-        if copied is not None:
-            copied.synchronize()
-        return host.numpy()
 
     _PLAN_MISS = object()
 

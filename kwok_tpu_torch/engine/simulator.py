@@ -208,28 +208,43 @@ _G_SIGNATURES = _Gauge(
 )
 
 
-def _fetch(stages: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """The fired stages in host memory once the kernel that writes them
-    has run, and the memory they are in (a label of ``kwok_sim_fetch_bytes``).
+class Fetch:
+    """The fired stages of one launch on their way to host memory:
+    :meth:`wait` returns them once written, and ``memory`` names the
+    memory they land in (a label of ``kwok_sim_fetch_bytes``).
 
-    On the card: one non-blocking copy, on the current stream behind the
-    kernel, into a fresh tensor from torch's pinned-memory caching
-    allocator, then a wait on an event recorded after it (that stream
-    alone, not the whole device).  The array keeps its pinned tensor
-    alive, so the allocator hands the block out again only once the
-    caller drops the array: no later call writes into an array the caller
-    still holds.  A caller that holds many arrays holds as many pinned
-    blocks (the same bytes it held pageable before), and freed blocks stay
-    cached for the life of the process.  On the CPU the tensor already is
-    the host copy."""
-    if stages.device.type != "cuda":
-        return stages.numpy(), "host"
-    host = torch.empty(stages.shape, dtype=stages.dtype, pin_memory=True)
-    host.copy_(stages, non_blocking=True)
-    copied = torch.cuda.Event()
-    copied.record(torch.cuda.current_stream(stages.device))
-    copied.synchronize()
-    return host.numpy(), "pinned"
+    On the card: one non-blocking copy into a fresh tensor from torch's
+    pinned-memory caching allocator, on the launch's stream or on
+    ``side`` behind it, and an event recorded after the copy, which
+    :meth:`wait` waits on (that stream alone, not the whole device).  The
+    array keeps its pinned block until the caller drops it, so no later
+    copy writes into an array the caller holds; freed blocks stay cached
+    for the life of the process.  On the CPU the tensor already is the
+    host copy."""
+
+    __slots__ = ("_host", "_copied", "memory")
+
+    def __init__(self, stages: torch.Tensor, side: Optional[torch.cuda.Stream] = None):
+        self._host, self._copied, self.memory = stages, None, "host"
+        if stages.device.type != "cuda":
+            return
+        launch = torch.cuda.current_stream(stages.device)
+        self._host = torch.empty(stages.shape, dtype=stages.dtype, pin_memory=True)
+        if side is None:
+            self._host.copy_(stages, non_blocking=True)
+        else:
+            side.wait_stream(launch)
+            with torch.cuda.stream(side):
+                self._host.copy_(stages, non_blocking=True)
+            stages.record_stream(side)
+        self._copied = torch.cuda.Event()
+        self._copied.record(launch if side is None else side)
+        self.memory = "pinned"
+
+    def wait(self) -> np.ndarray:
+        if self._copied is not None:
+            self._copied.synchronize()
+        return self._host.numpy()
 
 
 class _Span:
@@ -298,25 +313,6 @@ class _Admission(_Span):
         if self._range is not None:
             self._range.__exit__(*exc)
         _H_PHASE.observe(seconds, self.kind, self.phase)
-
-
-class _Total(_Span):
-    """A :class:`_Span` whose entries add up to one observation, made by
-    :meth:`observe`: a per-tick loop's phase, observed once a call."""
-
-    __slots__ = ("seconds",)
-
-    def __init__(self, kind: str, phase: str):
-        super().__init__(kind, phase)
-        self.seconds = 0.0
-
-    def __exit__(self, *exc) -> None:
-        self.seconds += time.perf_counter() - self._t0
-        if self._range is not None:
-            self._range.__exit__(*exc)
-
-    def observe(self) -> None:
-        _H_PHASE.observe(self.seconds, self.kind, self.phase)
 
 
 class _Exploration(_Span):
@@ -479,6 +475,8 @@ class DeviceSimulator:
         self._dev_key = None  # preserved PRNG state across re-uploads
         self._rematch_pending = False
         self._host_synced = True
+        #: the stream of :meth:`start_fetch`'s copies (made on first use)
+        self._copy_stream: Optional[torch.cuda.Stream] = None
         #: host mirror of the device virtual clock — ticks advance it
         #: deterministically, so reading now_ms never costs a device
         #: round-trip
@@ -815,6 +813,14 @@ class DeviceSimulator:
             fn = self._sharded_ticks[dt_ms] = sharded_tick(self.mesh, dt_ms)
         return fn
 
+    @property
+    def per_tick(self) -> bool:
+        """Whether this simulator ticks one launch a tick (``tick``, int32
+        fired stages): on a mesh, or for a stage set past the 126 stage
+        indices int8 holds.  Otherwise one ``run_ticks_collect`` launch
+        runs a whole macro-tick into int8."""
+        return self.mesh is not None or self.num_stages_over_int8()
+
     def tick_many(self, dt_ms: int, n_ticks: int) -> Tuple[np.ndarray, int]:
         """Advance ``n_ticks`` device ticks; returns (fired_stage [K, N]
         int8 with IDLE = not fired, t0_ms = virtual now before the first
@@ -830,74 +836,89 @@ class DeviceSimulator:
         rows come back" at 1M rows.
 
         On the card that transfer is one copy into pinned host memory
-        (:func:`_fetch`): each call returns an array of its own, which
-        keeps its pinned block until the caller drops it.
+        (:class:`Fetch`, on the launch's stream): each call returns an
+        array of its own, which keeps its pinned block until the caller
+        drops it.
 
-        On a mesh, and for stage sets past int8, it ticks one tick at a
-        time and returns int32 [K, N], every row in order, fetched into
-        pageable memory a tick at a time."""
-        if self.mesh is not None or self.num_stages_over_int8():
-            if self.now_ms >= REBASE_AT_MS:
-                self._rebase()
-            t0_ms = self._now_host
-            params, soa = self.to_device()
-            # int32 here on purpose: this branch exists (in part)
-            # because int8 cannot hold >126 stage indices
-            outs = []
-            # launch and fetch are observed once a call, as on the macro-tick path
-            launch = _Total(self.kind, "launch")
-            fetch = _Total(self.kind, "fetch")
-            for _ in range(n_ticks):
-                with launch:
-                    soa, out = self._tick_fn(dt_ms)(params, soa)
-                fired = out.fired_stage
-                with fetch:
-                    outs.append((fired.cpu() if self.mesh is None else fired.to_host()).numpy())
-            self._soa = soa
-            stages_np = np.stack(outs) if outs else np.empty((0, 0), np.int32)
-            if n_ticks:
-                launch.observe()
-                fetch.observe()
-                memory = "host" if self.device.type == "cpu" else "pageable"
-                _H_FETCH.observe(stages_np.nbytes, self.kind, memory)
-            self._now_host = t0_ms + dt_ms * n_ticks
-            if (stages_np >= 0).any() or self._rematch_pending:
-                self._host_synced = False
-                self._rematch_pending = False
-            return stages_np, t0_ms
-        stages, t0_ms = self.tick_many_async(dt_ms, n_ticks)
+        On the :attr:`per_tick` route it launches one tick at a time and
+        returns int32 [K, N], every row in order, fetched once after the
+        K launches: stacked on the card into one pinned copy, or on a
+        mesh each tick's rows into pageable memory."""
+        if not self.per_tick:
+            stages, t0_ms = self.tick_many_async(dt_ms, n_ticks)
+            with _Span(self.kind, "fetch"):
+                fetch = Fetch(stages)
+                fired = fetch.wait()
+            _H_FETCH.observe(fired.nbytes, self.kind, fetch.memory)
+            return fired, t0_ms
+        ticks, t0_ms = self._launch(dt_ms, n_ticks)
         with _Span(self.kind, "fetch"):
-            fired, memory = _fetch(stages)
+            if self.mesh is None:
+                fetch = Fetch(torch.stack(ticks))
+                fired, memory = fetch.wait(), fetch.memory
+            else:
+                fired = np.stack([t.to_host().numpy() for t in ticks])
+                memory = "host" if self.device.type == "cpu" else "pageable"
         _H_FETCH.observe(fired.nbytes, self.kind, memory)
+        if (fired >= 0).any() or self._rematch_pending:
+            self._host_synced = False
+            self._rematch_pending = False
         return fired, t0_ms
 
     def num_stages_over_int8(self) -> bool:
         return len(self.cset.compiled) > 126
 
+    def start_fetch(self, stages: torch.Tensor) -> Fetch:
+        """Start :meth:`tick_many_async`'s fired stages towards host
+        memory for a caller that waits later, once it has launched the
+        next macro-tick: on the card the copy runs on a side stream,
+        beside that kernel (``tick_many`` copies on the launch's stream)."""
+        if stages.device.type != "cuda":
+            return Fetch(stages)
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(device=stages.device)
+        return Fetch(stages, self._copy_stream)
+
     def tick_many_async(self, dt_ms: int, n_ticks: int):
         """Like tick_many, but returns the [K, N] int8 fired-stage DEVICE
         tensor without blocking — the caller overlaps the device compute
         with host work (drain of the previous macro-tick) and fetches it
-        (``.cpu()``) when ready.  Each call returns a fresh tensor, so a
-        later dispatch never overwrites a batch the caller still reads.
-        Single-device path only, and not for >int8 stage sets (the
-        caller uses tick_many there); tick_many's int8 branch is this +
-        the blocking fetch."""
-        if self.mesh is not None or self.num_stages_over_int8():
+        (:meth:`start_fetch`) when ready.  Each call returns a fresh
+        tensor, so a later dispatch never overwrites a batch the caller
+        still reads.  Refused on the :attr:`per_tick` route (the caller
+        uses tick_many there); tick_many's int8 route is this + the
+        blocking fetch."""
+        if self.per_tick:
             raise ValueError(
                 "tick_many_async is the single-device path for stage sets of at most 126 stages"
             )
+        stages, t0_ms = self._launch(dt_ms, n_ticks)
+        # pessimistic: fired rows are not visible until the fetch
+        self._host_synced = False
+        self._rematch_pending = False
+        return stages, t0_ms
+
+    def _launch(self, dt_ms: int, n_ticks: int):
+        """Launch ``n_ticks`` ticks under one ``launch`` span, after a
+        rebase when due and the upload of what is stale, and advance the
+        host clock; returns (the fired stages on the device, t0_ms): one
+        int8 [K, N] tensor, or on the :attr:`per_tick` route a list of
+        the K ticks' int32 fired stages."""
         if self.now_ms >= REBASE_AT_MS:
             self._rebase()
         t0_ms = self._now_host
         params, soa = self.to_device()
+        tick_fn = self._tick_fn(dt_ms) if self.per_tick else None
         with _Span(self.kind, "launch"):
-            new_soa, stages = run_ticks_collect(params, soa, dt_ms, n_ticks)
-        self._soa = new_soa
+            if tick_fn is None:
+                soa, stages = run_ticks_collect(params, soa, dt_ms, n_ticks)
+            else:
+                stages = []
+                for _ in range(n_ticks):
+                    soa, out = tick_fn(params, soa)
+                    stages.append(out.fired_stage)
+        self._soa = soa
         self._now_host = t0_ms + dt_ms * n_ticks
-        # pessimistic: fired rows are not visible until the fetch
-        self._host_synced = False
-        self._rematch_pending = False
         return stages, t0_ms
 
     def step(self, dt_ms: int = 100, materialize: bool = True) -> List[Transition]:

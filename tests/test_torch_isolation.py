@@ -41,7 +41,7 @@ ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted(
     p for p in (ROOT / "kwok_tpu_torch").rglob("*")
     if p.suffix in (".py", ".cu", ".cuh") and "_build" not in p.parts
-) + [ROOT / "chip_smoke.py", ROOT / "flush_bench.py"]
+) + [ROOT / "chip_smoke.py"]
 
 
 def test_imports_without_jax_or_kwok_tpu():
@@ -56,7 +56,7 @@ def test_imports_without_jax_or_kwok_tpu():
                      os.path.join(m.module_finder.path, m.name.rsplit(".", 1)[1] + ".py"))]
         for name in names:
             importlib.import_module(name)
-        import chip_smoke, flush_bench
+        import chip_smoke
         leaked = sorted(m for m, mod in sys.modules.items() if mod is not None and (
             m in ("kwok_tpu", "jax") or m.startswith(("kwok_tpu.", "jax."))))
         print(len(names), leaked)

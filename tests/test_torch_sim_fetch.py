@@ -1,12 +1,15 @@
-"""The blocking fetch of the port's DeviceSimulator.tick_many.
+"""The fetch of the port's DeviceSimulator: tick_many's, and the
+player's overlapped hand-off (``start_fetch``).
 
 The int8 macro-tick's fired stages come to the host once the kernel has
 run: on the card by one copy into pinned memory, on the CPU as the
 kernel's own output.  Either way the array is the caller's: a later call
 never writes into it, and it equals ``run_ticks_collect``'s output
-fetched by hand, bit for bit.  ``kwok_sim_fetch_bytes{kind,memory}``
-counts each call's bytes by the memory they land in.  The tests marked
-``cuda`` skip without a card (``python -m pytest --noconftest -q
+fetched by hand, bit for bit; batches in flight through
+``step_pipelined`` come back as ``step_batch``'s.
+``kwok_sim_fetch_bytes{kind,memory}`` counts each ``tick_many`` call's
+bytes by the memory they land in.  The tests marked ``cuda`` skip
+without a card (``python -m pytest --noconftest -q
 tests/test_torch_sim_fetch.py`` on it).
 """
 
@@ -102,6 +105,41 @@ def check_arrays_are_the_callers(device):
     return first, third
 
 
+def recording_player(device, seed=5):
+    """A player on ``pod_sim``'s objects whose drain only keeps the
+    fired-stage arrays it is handed, so nothing the host does reaches the
+    device and a pipelined player ticks as a stepped one does."""
+    from kwok_tpu_torch.cluster.store import ResourceStore
+    from kwok_tpu_torch.controllers.device_player import DeviceStagePlayer
+
+    stages = load_builtin("pod-general") + load_builtin("pod-chaos")
+    player = DeviceStagePlayer(ResourceStore(), "Pod", stages, capacity=256, seed=seed,
+                               device=device)
+    player.sim.admit_bulk(pod(labels=CHAOS), 200)
+    batches = []
+    player._drain_stages = lambda stages_np, t0_ms, dt: batches.append(stages_np) or 0
+    return player, batches
+
+
+def check_pipelined_batches_are_the_callers(device):
+    """Batches in flight through step_pipelined come back as arrays of
+    their own, equal to step_batch's on the same seed."""
+    piped, got = recording_player(device)
+    for _ in range(3):
+        piped.step_pipelined(250, 8)
+    assert len(got) == 2 and piped._inflight is not None
+    piped.flush_pipeline()
+    stepped, want = recording_player(device)
+    for _ in range(3):
+        stepped.step_batch(250, 8)
+    assert len(got) == len(want) == 3
+    assert sum(int((w >= 0).sum()) for w in want) > 0
+    for i, g in enumerate(got):
+        assert not any(np.shares_memory(g, h) for h in got[i + 1:])
+        assert g.dtype == np.int8 and np.array_equal(g, want[i])
+    return got
+
+
 @pytest.mark.parametrize("seed", [0, 7, 3_000_000_019])
 def test_fired_stages_equal_run_ticks_collect_fetched_by_hand(seed):
     check_bit_identical("cpu", seed)
@@ -109,6 +147,10 @@ def test_fired_stages_equal_run_ticks_collect_fetched_by_hand(seed):
 
 def test_successive_calls_return_arrays_of_their_own():
     check_arrays_are_the_callers("cpu")
+
+
+def test_pipelined_batches_are_arrays_of_their_own():
+    check_pipelined_batches_are_the_callers("cpu")
 
 
 def test_host_fetch_counts_one_observation_a_call_with_k_times_n_bytes():
@@ -174,3 +216,13 @@ def test_card_pinned_count_grows_by_one_a_call(cuda_device):
         node.tick_many(100, 8)
         assert fetches() == {("Pod", "pinned"): (i, i * 8 * 256),
                              ("Node", "pinned"): (i, i * 8 * 40)}
+
+
+@pytest.mark.cuda
+def test_card_pipelined_batches_are_pinned_and_of_their_own(cuda_device, monkeypatch):
+    def no_device_sync(*a, **k):
+        raise AssertionError("the hand-off waits on its own copy, not the whole device")
+
+    monkeypatch.setattr(torch.cuda, "synchronize", no_device_sync)
+    for a in check_pipelined_batches_are_the_callers(cuda_device):
+        assert isinstance(a.base, torch.Tensor) and a.base.is_pinned()

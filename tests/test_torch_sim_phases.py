@@ -126,10 +126,9 @@ def test_upload_once_after_admit_bulk_and_flush_only_with_rows_pending():
     assert counts()[("Pod", "upload")] == 1
 
 
-def test_per_tick_branch_counts_calls_not_ticks():
-    """Past 126 stages tick_many ticks one tick at a time; its launch and
-    fetch are still one observation a call, and so are its fetched int32
-    bytes (``host`` on the CPU: nothing is copied)."""
+def wide_stages():
+    """pod-general and 130 more stages: past the 126 stage indices int8
+    holds, so the simulator ticks one launch a tick."""
     stages = load_builtin("pod-general")
     for g in range(5):
         for v in range(26):
@@ -141,7 +140,14 @@ def test_per_tick_branch_counts_calls_not_ticks():
                     "next": {"statusTemplate": f"reason: custom-{g}-{v}"},
                 },
             }))
-    sim = DeviceSimulator(stages, capacity=8, device="cpu")
+    return stages
+
+
+def test_per_tick_branch_counts_calls_not_ticks():
+    """Past 126 stages tick_many ticks one tick at a time; its launch and
+    fetch are still one observation a call, and so are its fetched int32
+    bytes (``host`` on the CPU: nothing is copied)."""
+    sim = DeviceSimulator(wide_stages(), capacity=8, device="cpu")
     assert sim.num_stages_over_int8()
     sim.admit(pod())
     for _ in range(2):
@@ -153,6 +159,44 @@ def test_per_tick_branch_counts_calls_not_ticks():
     assert list(fetched) == [("Pod", "host")]
     assert fetched[("Pod", "host")]["count"] == 2
     assert fetched[("Pod", "host")]["sum"] == 2 * 5 * 8 * 4
+
+
+@pytest.mark.parametrize("route", ["wide", "mesh"])
+def test_per_tick_route_fetches_once_after_its_launches(monkeypatch, route):
+    """The per-tick route launches its K ticks, then fetches: one copy of
+    the stacked ticks on one device, each tick's rows in order on a mesh."""
+    from kwok_tpu_torch.parallel.mesh import Rows, make_mesh
+
+    if route == "wide":
+        sim = DeviceSimulator(wide_stages(), capacity=8, device="cpu")
+    else:
+        sim = DeviceSimulator(load_builtin("pod-fast"), capacity=8, device="cpu",
+                              mesh=make_mesh(devices=["cpu"] * 4))
+    assert sim.per_tick
+    sim.admit(pod())
+    sim.to_device()
+    calls = []
+    tick_fn, to_host = sim._tick_fn, Rows.to_host
+
+    def logged_tick_fn(dt_ms):
+        fn = tick_fn(dt_ms)
+        return lambda params, soa: calls.append("launch") or fn(params, soa)
+
+    class LoggedFetch(simmod.Fetch):
+        def __init__(self, stages, side=None):
+            calls.append("fetch")
+            super().__init__(stages, side)
+
+    monkeypatch.setattr(sim, "_tick_fn", logged_tick_fn)
+    monkeypatch.setattr(simmod, "Fetch", LoggedFetch)
+    monkeypatch.setattr(Rows, "to_host", lambda rows: calls.append("fetch") or to_host(rows))
+    for _ in range(2):
+        calls.clear()
+        out, _ = sim.tick_many(100, 5)
+        assert out.shape == (5, 8) and out.dtype == np.int32
+        assert calls == ["launch"] * 5 + ["fetch"] * (1 if route == "wide" else 5)
+    c = counts()
+    assert c[("Pod", "launch")] == 2 and c[("Pod", "fetch")] == 2
 
 
 def run(seed):
