@@ -38,9 +38,12 @@ Phases, in order; any failure raises and exits non-zero:
    transition of 1,000 sampled rows materialized in order and their
    feature parity checked, a 1,000,000-pod simulator on a synthetic
    128-stage set (only to cover the per-tick int32 branch for more than
-   126 stages), then macro-ticks timed for 10 s and a bench-style
-   ``run_ticks`` window;
-   each of its kernels' launch counts must be positive;
+   126 stages), then macro-ticks timed for 10 s (each fetched through
+   the pinned block its kernel writes, ``start_fetch``) and a
+   bench-style ``run_ticks`` window; each of its kernels' launch counts
+   must be positive; then, outside that count, the pinned host block of
+   ``run_ticks_collect`` on the live state against its device output and
+   the plain version;
 3b. the row-sharded path (``parallel/mesh.py``) at the same width: the
    1,000,000-pod / 10,000-node simulators unsharded, on
    ``make_mesh(torch.cuda.device_count())`` (one shard per card) and on
@@ -360,6 +363,17 @@ def clone_soa(soa):
     return type(soa)(*(t.clone() for t in soa))
 
 
+def run_collect(params, soa, k: int):
+    """``run_ticks_collect`` as the simulator launches it on the card,
+    into a fresh pinned host block besides its device output; returns
+    ``(soa, stages, block)``."""
+    from kwok_tpu_torch.ops import tick as T
+
+    block = torch.empty((k, soa.features.shape[0]), dtype=torch.int8, pin_memory=True)
+    soa, stages = T.run_ticks_collect(params, soa, DT_MS, k, host=block)
+    return soa, stages, block
+
+
 def assert_equal(what: str, got, want) -> None:
     """torch.equal, with the first differing entry in the message."""
     torch.cuda.synchronize()
@@ -461,9 +475,10 @@ def phase_parity(device):
                 fired += int(ko.fired_count)
             # run_ticks_collect K=8
             ks, ps = clone_soa(start), clone_soa(start)
-            ks, kst = T.run_ticks_collect(params, ks, DT_MS, MACRO_K)
+            ks, kst, block = run_collect(params, ks, MACRO_K)
             ps, pst = T._run_ticks_collect_impl(params, ps, DT_MS, MACRO_K)
             assert_equal(f"{label} run_ticks_collect stages", kst, pst)
+            assert_equal(f"{label} run_ticks_collect host block", block, pst.cpu())
             assert_soa_equal(f"{label} run_ticks_collect", ks, ps)
             # run_ticks K=50
             ks, ps = clone_soa(start), clone_soa(start)
@@ -603,9 +618,10 @@ def adversarial_parity(device) -> None:
                         fired += int(ko.fired_count)
                     log(f"parity {label}: tick x5 (fired {fired}): equal")
                     continue
-                ks, kst = T.run_ticks_collect(params, ks, DT_MS, MACRO_K)
+                ks, kst, block = run_collect(params, ks, MACRO_K)
                 ps, pst = T._run_ticks_collect_impl(params, ps, DT_MS, MACRO_K)
                 assert_equal(f"{label} run_ticks_collect stages", kst, pst)
+                assert_equal(f"{label} run_ticks_collect host block", block, pst.cpu())
                 assert_soa_equal(f"{label} run_ticks_collect", ks, ps)
                 ks, kc = T.run_ticks(params, ks, DT_MS, 20)
                 ps, pc = T._run_ticks_impl(params, ps, DT_MS, 20)
@@ -840,7 +856,7 @@ def phase_main_path():
 
     def macro(sim):
         st, t0 = sim.tick_many_async(DT_MS, MACRO_K)
-        return st.cpu().numpy(), t0
+        return sim.start_fetch(st).wait(), t0
 
     T.reset_launches()
     # warm-up: 13 macro-ticks, 104 ticks
@@ -911,8 +927,10 @@ def phase_main_path():
         hit = pod_dev >= 0
         fired_dev += hit.sum() + (node_dev >= 0).sum()
         rows_dev += hit.any(dim=0).sum()
+        fetches = pod_sim.start_fetch(pod_dev), node_sim.start_fetch(node_dev)
         t_d = time.perf_counter()
-        pod_dev.cpu(), node_dev.cpu()
+        for f in fetches:
+            f.wait()
         t_f = time.perf_counter()
         dispatch += t_d - t_i
         fetch += t_f - t_d
@@ -945,6 +963,17 @@ def phase_main_path():
                if counts[k] <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    # the collect kernel's pinned host block, as the simulator has it
+    # written, against its device output and the plain version, on
+    # copies of the live state (after the count: a check, not the path)
+    ks, ps = clone_soa(live), clone_soa(live)
+    ks, kst, block = run_collect(params, ks, MACRO_K)
+    ps, pst = T._run_ticks_collect_impl(params, ps, DT_MS, MACRO_K)
+    assert_equal("main-path run_ticks_collect host block", block, kst.cpu())
+    assert_equal("main-path run_ticks_collect stages", kst, pst)
+    assert_soa_equal("main-path run_ticks_collect", ks, ps)
+    log(f"host block of run_ticks_collect K={MACRO_K} on the live state: equal to its device "
+        f"output and the plain version ({int((pst >= 0).sum())} fired)")
     return counts, pod_sim, wide_sim
 
 
@@ -1283,13 +1312,15 @@ def phase_measure(counts, pod_sim, wide_sim, mesh_sim, smi):
     params, live = pod_sim.to_device()
     rematch0 = int(live.rematch.sum())
     ks, ps = clone_soa(live), clone_soa(live)
-    ks, kst = T.run_ticks_collect(params, ks, DT_MS, MACRO_K)
+    ks, kst, block = run_collect(params, ks, MACRO_K)
     ps, pst = T._run_ticks_collect_impl(params, ps, DT_MS, MACRO_K)
     assert_equal("main-shape run_ticks_collect", kst, pst)
+    assert_equal("main-shape run_ticks_collect host block", block, pst.cpu())
     assert_soa_equal("main-shape run_ticks_collect", ks, ps)
     err = max_abs_err([(kst, pst)] + list(zip(ks, ps)))
     fired = int((kst >= 0).sum())
-    collect = lambda s: T.run_ticks_collect(params, s, DT_MS, MACRO_K)[0]  # noqa: E731
+    # the launches are in stream order, so one block serves them all
+    collect = lambda s: T.run_ticks_collect(params, s, DT_MS, MACRO_K, host=block)[0]  # noqa: E731
     ms = chained_ms(collect, clone_soa(live), 20)
     split = tick_split(collect, live, 20, smi, "run_ticks_collect")
     dev_ms = split["live_device_ms"] or None

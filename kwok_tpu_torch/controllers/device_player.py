@@ -20,7 +20,7 @@ Port of ``kwok_tpu/controllers/device_player.py``: the simulator is the
 port's ``DeviceSimulator`` on ``device`` (the card unless the caller
 names one), and the overlapped macro-tick fetches its fired-stage batch
 through the simulator's own fetch (``DeviceSimulator.start_fetch``), the
-copy its blocking ``tick_many`` makes.  The drain is the reference's,
+one its blocking ``tick_many`` waits on.  The drain is the reference's,
 line for line.
 """
 
@@ -627,8 +627,8 @@ class DeviceStagePlayer:
         prev = self._inflight
         t0 = time.perf_counter()
         stages_dev, t0_ms = self.sim.tick_many_async(dt, n_ticks)
-        # start the device->host copy NOW so it overlaps the drain
-        # below; the next call's wait then returns at once
+        # the batch reaches host memory while the drain below runs; the
+        # next call's wait then returns at once
         self._inflight = (self.sim.start_fetch(stages_dev), t0_ms, dt)
         self.t_device += time.perf_counter() - t0
         fired = 0

@@ -14,8 +14,10 @@
 // kwok_tpu_torch/parallel/mesh.py.
 //
 // Bound.  Per row and call, ~74 bytes are read and ~62 written (13-column
-// pod rows), plus one byte per tick in MODE_COLLECT; each rematching row
-// costs two threefry evaluations and S x KC condition tests per tick.
+// pod rows), plus one byte per tick in MODE_COLLECT, written twice: to
+// the device output and over the host link to a pinned host block; each
+// rematching row costs two threefry evaluations and S x KC condition
+// tests per tick.
 // At K = 8 the bytes are the larger term, over hundreds of ticks the
 // integer work (chip_smoke.py computes both from each run's data).  In
 // steady state only ~5% of pod rows fire or rematch on a tick, ~1.6 rows
@@ -52,7 +54,16 @@
 //     count a popcount of the segment's ballot; the choice is the first
 //     lane whose running sum, carried across chunks when S > 32, passes
 //     r, found by ballot and __ffs.  The owning lane takes it by shuffle;
-//   - timers, per lane for its own row.
+//   - timers, per lane for its own row;
+//   - MODE_COLLECT: each lane puts its row's fired stage into a shared
+//     line of the block's 128 bytes, one line a tick, two ticks apart;
+//     after the next barrier one warp (a tick's line to each warp in
+//     turn) stores it, 4 bytes a lane, into the [K, N] output and into
+//     the caller's pinned host block.  The host stores
+//     write through L2 (st.global.wt), whole 128-byte lines where the
+//     line is aligned, so the bytes cross the link while later ticks
+//     compute and the fetch has nothing left to copy when the kernel
+//     ends.  One byte a lane would send 32-byte pieces over the link.
 // The segment width is a template parameter, so its scans unroll.  Lanes
 // past n take part in every ballot, shuffle and barrier as inactive
 // rows.
@@ -145,6 +156,7 @@ struct TickArgs {
   int32_t* fired_stage;  // [N]     MODE_SINGLE
   uint8_t* deleted;      // [N]     MODE_SINGLE
   int8_t* stages;        // [K, N]  MODE_COLLECT
+  int8_t* stages_host;   // [K, N]  MODE_COLLECT: the same bytes, in pinned host memory
   int32_t* count;        // []      MODE_SINGLE and MODE_COUNT, zeroed by the caller
   int64_t n;
   int64_t row_offset;  // global index of row 0 (a shard's first row)
@@ -350,6 +362,55 @@ __device__ __forceinline__ void tile_copy(int32_t* g, int32_t* feat, int count, 
   }
 }
 
+template <bool HOST, typename T>
+__device__ __forceinline__ void put(T* p, T v) {
+  if (HOST) {
+    __stwt(p, v);
+  } else {
+    *p = v;
+  }
+}
+
+// Stores nrows bytes of a tick's fired stages, staged in the shared line
+// src (16-byte aligned), to dst, from the 32 lanes of one warp: lane l
+// the word of bytes [head + 4l, head + 4l + 4), where head (0-3) brings
+// dst to a word boundary, and lanes 0-2 and 4-6 the bytes before the
+// first and after the last whole word.  A full block's line at an
+// aligned dst is one 128-byte store.  HOST stores write through L2 to
+// system memory.
+template <bool HOST>
+__device__ __forceinline__ void store_line(int8_t* dst, const int8_t* src, int nrows,
+                                           int lane) {
+  const int head = min((int)((0u - (unsigned)reinterpret_cast<uintptr_t>(dst)) & 3u), nrows);
+  const int words = (nrows - head) >> 2;
+  const int tail = head + 4 * words;
+  if (lane < words) {
+    const int i = head + 4 * lane;
+    uint32_t w;
+    if (head == 0) {
+      w = reinterpret_cast<const uint32_t*>(src)[lane];
+    } else {
+      w = (uint32_t)(uint8_t)src[i] | ((uint32_t)(uint8_t)src[i + 1] << 8) |
+          ((uint32_t)(uint8_t)src[i + 2] << 16) | ((uint32_t)(uint8_t)src[i + 3] << 24);
+    }
+    put<HOST>(reinterpret_cast<uint32_t*>(dst + i), w);
+  }
+  if (lane < head) {
+    put<HOST>(dst + lane, src[lane]);
+  } else if (lane >= 4 && lane - 4 < nrows - tail) {
+    put<HOST>(dst + tail + lane - 4, src[tail + lane - 4]);
+  }
+}
+
+// Tick t's line of the block's rows into the [K, N] output and the host
+// block.
+__device__ __forceinline__ void emit_line(const TickArgs& a, const int8_t* src, int t,
+                                          int64_t row0, int nrows, int lane) {
+  const int64_t at = (int64_t)t * a.n + row0;
+  store_line<false>(a.stages + at, src, nrows, lane);
+  store_line<true>(a.stages_host + at, src, nrows, lane);
+}
+
 // Blocks of 128 rows and at most 48 registers a thread, so that ten
 // blocks fit on an SM: the tick's chains of shuffles, shared loads and
 // barriers want many warps, and smaller blocks wait less at a barrier.
@@ -360,6 +421,8 @@ __global__ void __launch_bounds__(BLOCK, 10) tick_rows_kernel(TickArgs a) {
   __shared__ unsigned remask[BLOCK / 32];  // each warp's rematching rows this tick
   __shared__ float qu[BLOCK];              // the block's rows' choice uniforms
   __shared__ float qj[BLOCK];              // and jitter uniforms
+  // MODE_COLLECT: the fired stages of the block's rows, tick t in line t % 2
+  __shared__ __align__(16) int8_t line[2][BLOCK];
   const int S = a.S, KC = a.KC, C = a.C;
   const int KC4 = padded_kc(KC), SP = ((S + (1 << LOGW) - 1) >> LOGW) << LOGW;
   int2* cond = reinterpret_cast<int2*>(smem);
@@ -399,6 +462,7 @@ __global__ void __launch_bounds__(BLOCK, 10) tick_rows_kernel(TickArgs a) {
   // Every thread runs every tick, lanes past n as inactive rows, so that
   // each ballot, shuffle and barrier has the whole warp and block.
   const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int wrow = tid - lane;  // block row of the warp's lane 0
   const int seg = lane >> LOGW;
   const int64_t row = row0 + tid;
@@ -416,7 +480,6 @@ __global__ void __launch_bounds__(BLOCK, 10) tick_rows_kernel(TickArgs a) {
   }
   const int32_t ov_off = oc * S;       // OVC * S < 2**31 (kwok_tick_rows)
   const int32_t eff_sig = sg * S * C;  // SIG * S * C < 2**31
-  int8_t* stage_out = MODE == MODE_COLLECT ? a.stages + row : nullptr;
   int32_t now = *a.now_in;
   int32_t fired_total = 0;
 
@@ -465,6 +528,10 @@ __global__ void __launch_bounds__(BLOCK, 10) tick_rows_kernel(TickArgs a) {
     if (lane == 0) remask[tid >> 5] = todo;
     // the barrier also orders the effects before the match reads them
     const int nq = __syncthreads_count(do_match);
+    // the barrier also hands the last tick's line to the warp that stores it
+    if (MODE == MODE_COLLECT && t > 0 && warp == ((t - 1) & (BLOCK / 32 - 1))) {
+      emit_line(a, line[(t - 1) & 1], t - 1, row0, nrows, lane);
+    }
     if (nq > 0) {
       // 4a. draws, compacted over the block: thread i draws both
       // uniforms of the block's i-th rematching row
@@ -531,16 +598,13 @@ __global__ void __launch_bounds__(BLOCK, 10) tick_rows_kernel(TickArgs a) {
     if (!act) fa = NEVER;
     rm = false;
     fired_total += fired ? 1 : 0;
-    if (mine) {
-      if (MODE == MODE_COLLECT) {
-        *stage_out = (int8_t)(fired ? old_stage : IDLE);
-      } else if (MODE == MODE_SINGLE) {
-        a.fired[row] = fired;
-        a.fired_stage[row] = fired ? old_stage : IDLE;
-        a.deleted[row] = del_now;
-      }
+    if (MODE == MODE_COLLECT) {
+      line[t & 1][tid] = (int8_t)(fired ? old_stage : IDLE);
+    } else if (MODE == MODE_SINGLE && mine) {
+      a.fired[row] = fired;
+      a.fired_stage[row] = fired ? old_stage : IDLE;
+      a.deleted[row] = del_now;
     }
-    if (MODE == MODE_COLLECT) stage_out += a.n;
   }
   if (mine) {
     a.stage[row] = st;
@@ -549,6 +613,9 @@ __global__ void __launch_bounds__(BLOCK, 10) tick_rows_kernel(TickArgs a) {
     a.rematch[row] = 0;
   }
   __syncthreads();
+  if (MODE == MODE_COLLECT && warp == ((a.num_ticks - 1) & (BLOCK / 32 - 1))) {
+    emit_line(a, line[(a.num_ticks - 1) & 1], a.num_ticks - 1, row0, nrows, lane);
+  }
   tile_copy<true>(a.features + row0 * C, feat, nrows * C, C);
   if (MODE != MODE_COLLECT) {
     // block sum of fires, then one atomic add (integer, so exact)
@@ -624,7 +691,8 @@ int kwok_tick_rows(const TickArgs* args, void* stream) {
   if (a.num_ticks <= 0 || a.n <= 0 || a.S <= 0 || a.KC <= 0 || a.C <= 0 ||
       a.SIG <= 0 || a.OVC <= 0 || a.row_offset < 0 ||
       a.row_offset + a.n > 0x100000000ll || (int64_t)a.SIG * a.S * a.C > 0x7FFFFFFFll ||
-      (int64_t)a.OVC * a.S > 0x7FFFFFFFll) {
+      (int64_t)a.OVC * a.S > 0x7FFFFFFFll ||
+      (a.mode == MODE_COLLECT && (a.stages == nullptr || a.stages_host == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   key_schedule_kernel<<<1, 1, 0, s>>>(a);
@@ -645,6 +713,16 @@ int kwok_tick_rows(const TickArgs* args, void* stream) {
       err = cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// 1 when host, a block of pinned host memory, has a device address and
+// that address is its own (unified addressing), so that a kernel may
+// write it where the host reads it; 0 when not; a CUDA error negated.
+int kwok_host_mapped(const void* host) {
+  cudaPointerAttributes at;
+  const cudaError_t err = cudaPointerGetAttributes(&at, host);
+  if (err != cudaSuccess) return -(int)err;
+  return at.type == cudaMemoryTypeHost && at.devicePointer == host ? 1 : 0;
 }
 
 // split(key, n) as [n, 2] pairs and uniform(key, n), through the same

@@ -23,13 +23,14 @@ practice since runs are restartable from snapshots.
 
 from __future__ import annotations
 
+import collections
 import datetime
 import functools
 import hashlib
 import json
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,9 +83,10 @@ REBASE_AT_MS = 2**30
 #: ``admit_bulk`` call less the explorations inside it; ``explore``: one
 #: exploration of a behaviour from a state not explored before, in an
 #: admission or a ``refresh_row``), a macro-tick (``launch``: argument
-#: checks, output allocation and the launch; ``fetch``: the wait for the
-#: kernel and the copy of its fired stages to the host, on the card one
-#: copy into pinned memory, see ``kwok_sim_fetch_bytes``), and the host
+#: checks, output and pinned block allocation and the launch; ``fetch``:
+#: the wait until the fired stages are in host memory, on the card the
+#: wait for the kernel that writes them there, see
+#: ``kwok_sim_fetch_bytes``), and the host
 #: mirror's full ``upload``/``sync``, ``flush`` and ``rebase``, which
 #: break the "only dirty rows cross the boundary" contract when they
 #: recur.  A phase is observed only when it does work, so each series'
@@ -102,15 +104,17 @@ _H_PHASE = _telemetry.histogram(
 
 
 #: bytes of fired stages a ``tick_many`` call brings to the host, by
-#: resource kind and by the host memory they land in: ``pinned`` (the card's
-#: int8 macro-tick, one copy into a block of torch's pinned-memory caching
-#: allocator), ``pageable`` (the mesh's and the >126-stage per-tick copies
-#: on the card) or ``host`` (a CPU simulator: the fired stages already are
-#: in host memory, nothing is copied).  Observed once a call, beside the
-#: ``fetch`` phase, so each ``_count`` counts the calls that took that way.
+#: resource kind and by the host memory they land in: ``mapped`` (the
+#: card's int8 macro-tick: the row kernel writes them into a block of
+#: torch's pinned-memory caching allocator itself), ``pinned`` (the
+#: >126-stage per-tick route on the card: one copy of the stacked ticks
+#: into such a block), ``pageable`` (a mesh on the card) or ``host`` (a
+#: CPU simulator: the fired stages already are in host memory, nothing is
+#: copied).  Observed once a call, beside the ``fetch`` phase, so each
+#: ``_count`` counts the calls that took that way.
 _H_FETCH = _telemetry.histogram(
     "kwok_sim_fetch_bytes",
-    help="DeviceSimulator fired-stage bytes fetched a tick_many call, by host memory (pinned/pageable/host)",
+    help="DeviceSimulator fired-stage bytes fetched a tick_many call, by host memory (mapped/pinned/pageable/host)",
     buckets=(1e3, 1e4, 1e5, 1e6, 1e7, 1e8, 1e9),
     labelnames=("kind", "memory"),
 )
@@ -213,37 +217,45 @@ class Fetch:
     :meth:`wait` returns them once written, and ``memory`` names the
     memory they land in (a label of ``kwok_sim_fetch_bytes``).
 
-    On the card: one non-blocking copy into a fresh tensor from torch's
-    pinned-memory caching allocator, on the launch's stream or on
-    ``side`` behind it, and an event recorded after the copy, which
-    :meth:`wait` waits on (that stream alone, not the whole device).  The
-    array keeps its pinned block until the caller drops it, so no later
-    copy writes into an array the caller holds; freed blocks stay cached
-    for the life of the process.  On the CPU the tensor already is the
-    host copy."""
+    ``Fetch(stages)``: on the card, one non-blocking copy into a fresh
+    tensor from torch's pinned-memory caching allocator, on the launch's
+    stream, and an event recorded after it; on the CPU the tensor already
+    is the host copy.  :meth:`mapped`: a pinned block that the kernel just
+    launched writes itself, and an event recorded after that kernel.
+    :meth:`wait` waits on the event (that stream alone, not the whole
+    device).  The array keeps its pinned block until the caller drops it,
+    so no later launch writes into an array the caller holds; freed blocks
+    stay cached for the life of the process."""
 
-    __slots__ = ("_host", "_copied", "memory")
+    __slots__ = ("_host", "_done", "memory")
 
-    def __init__(self, stages: torch.Tensor, side: Optional[torch.cuda.Stream] = None):
-        self._host, self._copied, self.memory = stages, None, "host"
+    def __init__(self, stages: torch.Tensor):
+        self._host, self._done, self.memory = stages, None, "host"
         if stages.device.type != "cuda":
             return
-        launch = torch.cuda.current_stream(stages.device)
         self._host = torch.empty(stages.shape, dtype=stages.dtype, pin_memory=True)
-        if side is None:
-            self._host.copy_(stages, non_blocking=True)
-        else:
-            side.wait_stream(launch)
-            with torch.cuda.stream(side):
-                self._host.copy_(stages, non_blocking=True)
-            stages.record_stream(side)
-        self._copied = torch.cuda.Event()
-        self._copied.record(launch if side is None else side)
+        self._host.copy_(stages, non_blocking=True)
+        self._done = torch.cuda.Event()
+        self._done.record(torch.cuda.current_stream(stages.device))
         self.memory = "pinned"
 
+    @classmethod
+    def mapped(cls, host: torch.Tensor, device: torch.device) -> "Fetch":
+        """The fetch of ``host``, written by the kernel last launched on
+        ``device``'s current stream."""
+        fetch = cls.__new__(cls)
+        fetch._host, fetch.memory = host, "mapped"
+        fetch._done = torch.cuda.Event()
+        fetch._done.record(torch.cuda.current_stream(device))
+        return fetch
+
+    def written(self) -> bool:
+        """Whether the bytes are in host memory, without waiting."""
+        return self._done is None or self._done.query()
+
     def wait(self) -> np.ndarray:
-        if self._copied is not None:
-            self._copied.synchronize()
+        if self._done is not None:
+            self._done.synchronize()
         return self._host.numpy()
 
 
@@ -475,8 +487,15 @@ class DeviceSimulator:
         self._dev_key = None  # preserved PRNG state across re-uploads
         self._rematch_pending = False
         self._host_synced = True
-        #: the stream of :meth:`start_fetch`'s copies (made on first use)
-        self._copy_stream: Optional[torch.cuda.Stream] = None
+        #: the newest int8 launch on the card, (its device output, the
+        #: fetch of the pinned block its kernel writes), until
+        #: :meth:`tick_many` or :meth:`start_fetch` takes it
+        self._newest: Optional[Tuple[torch.Tensor, Fetch]] = None
+        #: the fetches whose kernel may still write its pinned block,
+        #: oldest first.  torch's host allocator knows nothing of a
+        #: kernel's writes, so a block goes back to it, when its caller
+        #: drops it, only once it has left this queue
+        self._writing: Deque[Fetch] = collections.deque()
         #: host mirror of the device virtual clock — ticks advance it
         #: deterministically, so reading now_ms never costs a device
         #: round-trip
@@ -835,10 +854,10 @@ class DeviceSimulator:
         moves only this [K, N] int8 across the boundary — "only dirty
         rows come back" at 1M rows.
 
-        On the card that transfer is one copy into pinned host memory
-        (:class:`Fetch`, on the launch's stream): each call returns an
-        array of its own, which keeps its pinned block until the caller
-        drops it.
+        On the card the row kernel writes the fired stages into pinned
+        host memory itself (:meth:`Fetch.mapped`), while it computes, and
+        the fetch only waits for it: each call returns an array of its
+        own, which keeps its pinned block until the caller drops it.
 
         On the :attr:`per_tick` route it launches one tick at a time and
         returns int32 [K, N], every row in order, fetched once after the
@@ -847,7 +866,7 @@ class DeviceSimulator:
         if not self.per_tick:
             stages, t0_ms = self.tick_many_async(dt_ms, n_ticks)
             with _Span(self.kind, "fetch"):
-                fetch = Fetch(stages)
+                fetch = self.start_fetch(stages)
                 fired = fetch.wait()
             _H_FETCH.observe(fired.nbytes, self.kind, fetch.memory)
             return fired, t0_ms
@@ -869,21 +888,27 @@ class DeviceSimulator:
         return len(self.cset.compiled) > 126
 
     def start_fetch(self, stages: torch.Tensor) -> Fetch:
-        """Start :meth:`tick_many_async`'s fired stages towards host
-        memory for a caller that waits later, once it has launched the
-        next macro-tick: on the card the copy runs on a side stream,
-        beside that kernel (``tick_many`` copies on the launch's stream)."""
+        """The fetch of :meth:`tick_many_async`'s fired stages, for a
+        caller that waits later, once it has launched the next macro-tick.
+        On the card, the pinned block the newest launch's kernel writes:
+        ``stages`` must be that launch's output, and its block is handed
+        out once."""
+        newest = self._newest
+        if newest is not None and newest[0] is stages:
+            self._newest = None
+            return newest[1]
         if stages.device.type != "cuda":
             return Fetch(stages)
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(device=stages.device)
-        return Fetch(stages, self._copy_stream)
+        raise ValueError(
+            "start_fetch takes the fired stages of this simulator's newest tick_many_async, once")
 
     def tick_many_async(self, dt_ms: int, n_ticks: int):
         """Like tick_many, but returns the [K, N] int8 fired-stage DEVICE
         tensor without blocking — the caller overlaps the device compute
         with host work (drain of the previous macro-tick) and fetches it
-        (:meth:`start_fetch`) when ready.  Each call returns a fresh
+        (:meth:`start_fetch`, before the next dispatch) when ready.  On
+        the card the kernel also writes them into a pinned host block that
+        the simulator keeps for that fetch.  Each call returns a fresh
         tensor, so a later dispatch never overwrites a batch the caller
         still reads.  Refused on the :attr:`per_tick` route (the caller
         uses tick_many there); tick_many's int8 route is this + the
@@ -903,20 +928,32 @@ class DeviceSimulator:
         rebase when due and the upload of what is stale, and advance the
         host clock; returns (the fired stages on the device, t0_ms): one
         int8 [K, N] tensor, or on the :attr:`per_tick` route a list of
-        the K ticks' int32 fired stages."""
+        the K ticks' int32 fired stages.  On the card the int8 launch
+        takes a fresh pinned block, which its kernel writes too, and
+        becomes :attr:`_newest`."""
         if self.now_ms >= REBASE_AT_MS:
             self._rebase()
         t0_ms = self._now_host
         params, soa = self.to_device()
         tick_fn = self._tick_fn(dt_ms) if self.per_tick else None
         with _Span(self.kind, "launch"):
-            if tick_fn is None:
-                soa, stages = run_ticks_collect(params, soa, dt_ms, n_ticks)
-            else:
+            if tick_fn is not None:
                 stages = []
                 for _ in range(n_ticks):
                     soa, out = tick_fn(params, soa)
                     stages.append(out.fired_stage)
+            elif self.device.type != "cuda":
+                soa, stages = run_ticks_collect(params, soa, dt_ms, n_ticks)
+            else:
+                # one stream: the kernels, so the fetches, end in order
+                while self._writing and self._writing[0].written():
+                    self._writing.popleft()
+                host = torch.empty((n_ticks, soa.features.shape[0]), dtype=torch.int8,
+                                   pin_memory=True)
+                soa, stages = run_ticks_collect(params, soa, dt_ms, n_ticks, host=host)
+                fetch = Fetch.mapped(host, self.device)
+                self._writing.append(fetch)
+                self._newest = (stages, fetch)
         self._soa = soa
         self._now_host = t0_ms + dt_ms * n_ticks
         return stages, t0_ms

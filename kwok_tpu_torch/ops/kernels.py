@@ -20,7 +20,10 @@ this module on machines with no ``nvcc`` and no card.
 The launchers take tensors that already lie on one CUDA device, check
 their dtype, shape and contiguity, launch on PyTorch's current stream
 and raise if the C entry returns a CUDA error.  They allocate nothing
-but the fresh outputs the caller gets back.
+but the fresh outputs the caller gets back.  The collect kernel also
+writes its output into a pinned host block that the caller gives
+(``tick_rows``'s ``host``), through the block's own address, which the
+CUDA runtime is asked to confirm before each such launch.
 """
 
 from __future__ import annotations
@@ -133,6 +136,8 @@ def _open(src: str) -> ctypes.CDLL:
         lib.kwok_threefry_draws.restype = ctypes.c_int
         lib.kwok_tick_smem_bytes.argtypes = [ctypes.c_int32] * 3
         lib.kwok_tick_smem_bytes.restype = ctypes.c_size_t
+        lib.kwok_host_mapped.argtypes = [ctypes.c_void_p]
+        lib.kwok_host_mapped.restype = ctypes.c_int
     elif src == "scatter.cu":
         lib.kwok_scatter_rows.argtypes = [ctypes.POINTER(ScatterArgs), ctypes.c_void_p]
         lib.kwok_scatter_rows.restype = ctypes.c_int
@@ -165,7 +170,7 @@ TickArgs = _struct("TickArgs", [
         "eff_mode", "eff_val", "ov_w", "ov_d", "ov_j",
         "features", "sig", "ovc", "stage", "fire_at", "active", "rematch", "del_ts",
         "now_in", "key_in", "now_out", "key_out", "sched",
-        "fired", "fired_stage", "deleted", "stages", "count")],
+        "fired", "fired_stage", "deleted", "stages", "stages_host", "count")],
     ("n", ctypes.c_int64), ("row_offset", ctypes.c_int64),
     *[(f, ctypes.c_int32) for f in (
         "S", "KC", "C", "SIG", "OVC", "dt_ms", "num_ticks", "mode")],
@@ -200,6 +205,15 @@ def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device) -> int
     return t.data_ptr()
 
 
+def check_host_block(host: torch.Tensor, shape) -> int:
+    """The address of ``host``, a block that the collect kernel writes
+    besides its device output: int8, of ``shape`` (the output's
+    ``[K, N]``), contiguous and in host memory, or this raises.  That the
+    card can write it, pinned memory addressed on the card at its own
+    address, ``tick_rows`` asks the CUDA runtime before each launch."""
+    return _check("host", host, torch.int8, shape, torch.device("cpu"))
+
+
 def _raise_on(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
@@ -209,14 +223,19 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int, row_offset: int = 0):
+def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int, row_offset: int = 0,
+              host=None):
     """Launch the key schedule and the row kernel of csrc/tick.cu.
 
     Updates the SoA's row columns in place and returns ``(now, key,
     outs)``: the advanced clock and key as fresh tensors, and ``outs``,
     the mode's outputs (``(fired, fired_stage, deleted, count)``,
     ``stages [K, N] int8`` or ``count``).  ``row_offset`` is the global
-    index of the SoA's first row, which the rows' draws count from."""
+    index of the SoA's first row, which the rows' draws count from.
+    ``host``, which ``MODE_COLLECT`` needs and no other mode takes, is a
+    pinned ``[K, N]`` int8 block (``check_host_block``) that the kernel
+    writes with the same bytes as ``stages``; it is the caller's to hold
+    until the kernel has run."""
     dev = soa.features.device
     if dev.type != "cuda":
         raise ValueError(f"tick_rows needs CUDA tensors, got {dev}")
@@ -270,15 +289,23 @@ def tick_rows(params, soa, dt_ms: int, num_ticks: int, mode: int, row_offset: in
     elif mode == MODE_COLLECT:
         outs = torch.empty((num_ticks, N), dtype=torch.int8, device=dev)
         a.stages = outs.data_ptr()
+        if host is None:
+            raise ValueError("the collect kernel writes a pinned host block too: pass host")
+        a.stages_host = check_host_block(host, (num_ticks, N))
     elif mode == MODE_COUNT:
         outs = torch.zeros((), dtype=i32, device=dev)
         a.count = outs.data_ptr()
     else:
         raise ValueError(f"unknown mode {mode}")
+    if host is not None and mode != MODE_COLLECT:
+        raise ValueError("only the collect mode writes a host block")
     a.n, a.row_offset, a.S, a.KC, a.C, a.SIG, a.OVC = N, row_offset, S, KC, C, SIG, OVC
     a.dt_ms, a.num_ticks, a.mode = int(dt_ms), int(num_ticks), mode
     lib = _lib("tick.cu")
     with torch.cuda.device(dev):
+        if mode == MODE_COLLECT and lib.kwok_host_mapped(a.stages_host) != 1:
+            raise ValueError("host: not pinned memory that the card addresses at its own "
+                             "address, so the collect kernel cannot write it")
         _raise_on(lib.kwok_tick_rows(ctypes.byref(a), _stream(dev)), "kwok_tick_rows")
     return now, key, outs
 

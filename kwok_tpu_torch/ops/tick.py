@@ -361,14 +361,21 @@ def tick(params: TickParams, soa: SoA, dt_ms: int) -> Tuple[SoA, TickOut]:
 
 
 def run_ticks_collect(
-    params: TickParams, soa: SoA, dt_ms: int, num_ticks: int
+    params: TickParams, soa: SoA, dt_ms: int, num_ticks: int,
+    host: Optional[torch.Tensor] = None,
 ) -> Tuple[SoA, torch.Tensor]:
     """``num_ticks`` ticks; returns the SoA (row columns updated in
-    place) and a fresh [K, N] int8 fired-stage tensor."""
+    place) and a fresh [K, N] int8 fired-stage tensor.  On the card the
+    kernel also writes the same bytes into ``host``, a pinned [K, N] int8
+    block that the card's launch needs (``kernels.tick_rows``); the
+    caller waits for the launch before reading it and holds it until
+    then.  The plain version takes none: its output is in host memory."""
     if not _on_cuda(soa.features):
+        if host is not None:
+            raise ValueError("only the card's kernel writes a host block")
         return _run_ticks_collect_impl(params, soa, dt_ms, num_ticks)
     now, key, stages = kernels.tick_rows(
-        params, soa, dt_ms, num_ticks, kernels.MODE_COLLECT
+        params, soa, dt_ms, num_ticks, kernels.MODE_COLLECT, host=host
     )
     run_ticks_collect.launches += 1
     return soa._replace(now=now, key=key), stages

@@ -204,6 +204,12 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                              "sharded_run_ticks": 0}
 
 
+def pinned_block(k, n):
+    """The pinned [K, N] int8 host block that the card's collect kernel
+    writes besides its device output."""
+    return torch.empty((k, n), dtype=torch.int8, pin_memory=True)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -234,7 +240,7 @@ def test_kernels_equal_plain_versions_on_the_card(cuda_device):
         now=np.array(0, np.int32), key=np.array([0, 3], np.uint32)), cuda_device)
     ks = tt.SoA(*(t.clone() for t in soa))
     ps = tt.SoA(*(t.clone() for t in soa))
-    ks, kst = tt.run_ticks_collect(params, ks, 100, 8)
+    ks, kst = tt.run_ticks_collect(params, ks, 100, 8, host=pinned_block(8, n))
     ps, pst = tt._run_ticks_collect_impl(params, ps, 100, 8)
     assert torch.equal(kst, pst)
     for f in ("features", "stage", "fire_at", "active", "rematch", "now"):
@@ -251,7 +257,7 @@ def test_kernels_equal_plain_versions_on_the_card(cuda_device):
     soa = tt.soa_from_numpy(sd, cuda_device)
     ks = tt.SoA(*(t.clone() for t in soa))
     ps = tt.SoA(*(t.clone() for t in soa))
-    ks, kst = tt.run_ticks_collect(params, ks, 100, 8)
+    ks, kst = tt.run_ticks_collect(params, ks, 100, 8, host=pinned_block(8, n))
     ps, pst = tt._run_ticks_collect_impl(params, ps, 100, 8)
     assert torch.equal(kst, pst)
     ks, kc = tt.run_ticks(params, ks, 100, 20)

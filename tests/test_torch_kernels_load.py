@@ -35,6 +35,7 @@ STUB_C = """
 int kwok_tick_rows(void *args, void *stream) { return 0; }
 int kwok_threefry_draws(void *key, long n, void *pairs, void *u, void *stream) { return 0; }
 size_t kwok_tick_smem_bytes(int S, int KC, int C) { return 0; }
+int kwok_host_mapped(void *host) { return 1; }
 int kwok_scatter_rows(void *args, void *stream) { return 0; }
 int kwok_lease_tick(void *args, void *stream) { return 0; }
 """
@@ -127,8 +128,9 @@ def _plain_launchers(monkeypatch):
     version in its place."""
     monkeypatch.setattr(T, "_on_cuda", lambda t: True)
 
-    def tick_rows(params, soa, dt_ms, num_ticks, mode, row_offset=0):
+    def tick_rows(params, soa, dt_ms, num_ticks, mode, row_offset=0, host=None):
         kernels._lib("tick.cu")
+        assert host is None  # a CPU simulator writes no pinned block
         if mode == kernels.MODE_COLLECT:
             out, outs = T._run_ticks_collect_impl(params, soa, dt_ms, num_ticks)
         elif mode == kernels.MODE_SINGLE:

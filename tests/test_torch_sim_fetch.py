@@ -2,14 +2,14 @@
 player's overlapped hand-off (``start_fetch``).
 
 The int8 macro-tick's fired stages come to the host once the kernel has
-run: on the card by one copy into pinned memory, on the CPU as the
-kernel's own output.  Either way the array is the caller's: a later call
-never writes into it, and it equals ``run_ticks_collect``'s output
-fetched by hand, bit for bit; batches in flight through
-``step_pipelined`` come back as ``step_batch``'s.
-``kwok_sim_fetch_bytes{kind,memory}`` counts each ``tick_many`` call's
-bytes by the memory they land in.  The tests marked ``cuda`` skip
-without a card (``python -m pytest --noconftest -q
+run: on the card the row kernel writes them into a pinned host block of
+the launch's own (``mapped``), on the CPU they are the plain version's
+output.  Either way the array is the caller's: a later call never writes
+into it, and it equals ``run_ticks_collect``'s output fetched by hand,
+bit for bit; batches in flight through ``step_pipelined`` come back as
+``step_batch``'s.  ``kwok_sim_fetch_bytes{kind,memory}`` counts each
+``tick_many`` call's bytes by the memory they land in.  The tests marked
+``cuda`` skip without a card (``python -m pytest --noconftest -q
 tests/test_torch_sim_fetch.py`` on it).
 """
 
@@ -70,12 +70,17 @@ def fetches():
 
 def by_hand(device, seed, calls, K=8, dt=250):
     """``run_ticks_collect`` on a twin simulator's device state, each
-    output fetched with a plain ``.cpu()`` and copied."""
+    output fetched with a plain ``.cpu()`` and copied (on the card the
+    launch also writes a pinned block, which this leaves unread)."""
     twin = pod_sim(device, seed)
     params, soa = twin.to_device()
     out = []
     for _ in range(calls):
-        soa, stages = run_ticks_collect(params, soa, dt, K)
+        if soa.features.is_cuda:
+            host = torch.empty((K, soa.features.shape[0]), dtype=torch.int8, pin_memory=True)
+            soa, stages = run_ticks_collect(params, soa, dt, K, host=host)
+        else:
+            soa, stages = run_ticks_collect(params, soa, dt, K)
         out.append(stages.cpu().numpy().copy())
     return out
 
@@ -181,6 +186,25 @@ def test_nothing_is_counted_under_kwok_telemetry_0():
     assert out.stdout.split() == ["0", "0"]
 
 
+@pytest.mark.parametrize("bad, error", [
+    (torch.empty((8, 40), dtype=torch.int32), TypeError),
+    (torch.empty((8, 41), dtype=torch.int8), ValueError),
+    (torch.empty((40, 8), dtype=torch.int8).t(), ValueError),
+    (torch.empty((8, 40), dtype=torch.int8, device="meta"), ValueError),
+], ids=["int32", "shape", "strided", "off-host"])
+def test_host_block_must_be_an_int8_k_by_n_host_block(bad, error):
+    from kwok_tpu_torch.ops import kernels
+
+    with pytest.raises(error):
+        kernels.check_host_block(bad, (8, 40))
+
+
+def test_the_plain_collect_refuses_a_host_block():
+    params, soa = pod_sim("cpu").to_device()
+    with pytest.raises(ValueError, match="card"):
+        run_ticks_collect(params, soa, 100, 8, host=torch.empty((8, 256), dtype=torch.int8))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -204,7 +228,7 @@ def test_card_arrays_are_the_callers_and_pinned(cuda_device, monkeypatch):
     arrays = check_arrays_are_the_callers(cuda_device)
     for a in arrays:
         assert isinstance(a.base, torch.Tensor) and a.base.is_pinned()
-    assert fetches() == {("Pod", "pinned"): (3, 3 * 8 * 256)}
+    assert fetches() == {("Pod", "mapped"): (3, 3 * 8 * 256)}
 
 
 @pytest.mark.cuda
@@ -214,8 +238,8 @@ def test_card_pinned_count_grows_by_one_a_call(cuda_device):
     for i in range(1, 5):
         sim.tick_many(100, 8)
         node.tick_many(100, 8)
-        assert fetches() == {("Pod", "pinned"): (i, i * 8 * 256),
-                             ("Node", "pinned"): (i, i * 8 * 40)}
+        assert fetches() == {("Pod", "mapped"): (i, i * 8 * 256),
+                             ("Node", "mapped"): (i, i * 8 * 40)}
 
 
 @pytest.mark.cuda
@@ -226,3 +250,97 @@ def test_card_pipelined_batches_are_pinned_and_of_their_own(cuda_device, monkeyp
     monkeypatch.setattr(torch.cuda, "synchronize", no_device_sync)
     for a in check_pipelined_batches_are_the_callers(cuda_device):
         assert isinstance(a.base, torch.Tensor) and a.base.is_pinned()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 3])
+@pytest.mark.parametrize("n", [1, 127, 128, 129, 1000])
+@pytest.mark.parametrize("k", [1, 3, 8, 13])
+def test_card_host_block_equals_device_output_and_plain(cuda_device, k, n, offset):
+    """The kernel's host block holds its device output's bytes and the
+    plain version's, at every edge of a 128-row line and at a block that
+    starts off a word boundary (``offset``)."""
+    params, soa = pod_sim(cuda_device, seed=n, rows=n, capacity=n).to_device()
+    cparams, csoa = pod_sim("cpu", seed=n, rows=n, capacity=n).to_device()
+    fired = 0
+    for _ in range(8):
+        host = torch.empty(offset + k * n, dtype=torch.int8, pin_memory=True)[offset:].view(k, n)
+        host.fill_(-7)
+        soa, stages = run_ticks_collect(params, soa, 1000, k, host=host)
+        csoa, want = run_ticks_collect(cparams, csoa, 1000, k)
+        torch.cuda.synchronize()
+        assert torch.equal(stages.cpu(), want)
+        assert torch.equal(host, want)
+        fired += int((want >= 0).sum())
+    assert fired > 0
+
+
+@pytest.mark.cuda
+def test_card_each_call_writes_a_block_of_its_own(cuda_device):
+    """Every launch's kernel writes a fresh pinned block, and tick_many
+    hands back that block, no copy of it."""
+    sim = pod_sim(cuda_device)
+    kept, blocks = [], set()
+    for _ in range(4):
+        stages, _ = sim.tick_many_async(250, 8)
+        fetch = sim.start_fetch(stages)
+        got = fetch.wait()
+        assert fetch.memory == "mapped" and got.base.data_ptr() not in blocks
+        assert np.array_equal(got, stages.cpu().numpy())
+        blocks.add(got.base.data_ptr())
+        kept.append(got)
+    array, _ = sim.tick_many(250, 8)
+    assert array.base.data_ptr() not in blocks and sim._newest is None
+
+
+@pytest.mark.cuda
+def test_card_block_is_not_reused_before_its_kernel_ends(cuda_device):
+    """A block whose caller dropped it stays out of torch's host allocator
+    until its kernel has run: a kernel's writes, unlike a copy's, leave
+    no event with the allocator.  3,000 rows: blocks of 24,000 bytes, a
+    size class of the allocator that no other test here uses."""
+    sim = pod_sim(cuda_device, rows=3000, capacity=3000)
+    sim.tick_many(250, 8)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s: the next kernels wait behind it
+    first, _ = sim.tick_many_async(250, 8)
+    block = sim._newest[1]._host.data_ptr()
+    del first
+    sim.tick_many_async(250, 8)  # takes the newest place; the first is dropped
+    assert not sim._writing[0].written() and sim._writing[0]._host.data_ptr() == block
+    fresh = [torch.empty((8, 3000), dtype=torch.int8, pin_memory=True) for _ in range(4)]
+    assert block not in {t.data_ptr() for t in fresh}
+    torch.cuda.synchronize()
+    del fresh
+    sim.tick_many(250, 8)
+    assert len(sim._writing) == 1
+    # once its kernel has run, the dropped block goes back to the allocator,
+    # which hands it to the newest launch or to one of these
+    again = [torch.empty((8, 3000), dtype=torch.int8, pin_memory=True) for _ in range(16)]
+    assert block in {t.data_ptr() for t in again} | {f._host.data_ptr() for f in sim._writing}
+
+
+@pytest.mark.cuda
+def test_card_start_fetch_takes_the_newest_launch_once(cuda_device):
+    sim = pod_sim(cuda_device)
+    older, _ = sim.tick_many_async(250, 8)
+    newest, _ = sim.tick_many_async(250, 8)
+    with pytest.raises(ValueError, match="newest"):
+        sim.start_fetch(older)
+    fetch = sim.start_fetch(newest)
+    with pytest.raises(ValueError, match="once"):
+        sim.start_fetch(newest)
+    assert np.array_equal(fetch.wait(), newest.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_card_collect_needs_a_host_block(cuda_device):
+    params, soa = pod_sim(cuda_device).to_device()
+    with pytest.raises(ValueError, match="pass host"):
+        run_ticks_collect(params, soa, 100, 8)
+
+
+@pytest.mark.cuda
+def test_card_collect_refuses_a_pageable_host_block(cuda_device):
+    params, soa = pod_sim(cuda_device).to_device()
+    with pytest.raises(ValueError, match="pinned"):
+        run_ticks_collect(params, soa, 100, 8, host=torch.empty((8, 256), dtype=torch.int8))

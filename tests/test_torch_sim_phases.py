@@ -183,9 +183,9 @@ def test_per_tick_route_fetches_once_after_its_launches(monkeypatch, route):
         return lambda params, soa: calls.append("launch") or fn(params, soa)
 
     class LoggedFetch(simmod.Fetch):
-        def __init__(self, stages, side=None):
+        def __init__(self, stages):
             calls.append("fetch")
-            super().__init__(stages, side)
+            super().__init__(stages)
 
     monkeypatch.setattr(sim, "_tick_fn", logged_tick_fn)
     monkeypatch.setattr(simmod, "Fetch", LoggedFetch)
@@ -559,5 +559,6 @@ def test_the_benchmark_lists_the_admission_readers_for_the_placed_cell():
         assert m["moves"] == "setup_s" and m["layer"] == "setup"
     cell = spec.load_cell("placed-mixed-10k.sim")
     assert set(ADMISSION_READERS) | {"kernel.tick_collect.roofline", "device.idle_share.sim",
-                                     "setup.admit_native_share"} == set(cell.readers)
+                                     "setup.admit_native_share",
+                                     "simulator.fetch_mapped_share"} == set(cell.readers)
     assert {m.name for m in cell.end_to_end} == {"sim_macro_tick_ms", "setup_s"}
